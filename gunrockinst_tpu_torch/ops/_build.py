@@ -1,0 +1,96 @@
+"""Build and load the port's CUDA kernels.
+
+Each source `csrc/<name>.cu` has a plain C interface and is compiled by
+one `nvcc` call for Hopper (`sm_90a`) into `_build/<name>-<hash>.so`,
+where the hash covers the source text and the flags; the library is
+then loaded with `ctypes`.  Nothing is built when the package is
+imported: `load` builds at first use, and `build` starts one `nvcc`
+per missing library, all at once.  A build that fails raises with
+nvcc's output.  No source includes PyTorch's headers, so a build takes
+seconds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+SRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (looked on PATH and in "
+                           f"{home}/bin); the CUDA kernels cannot be built")
+    return path
+
+
+def library_path(name: str) -> Path:
+    """Where the library of `csrc/<name>.cu` goes, named by the hash of
+    its source and the flags."""
+    src = SRC_DIR / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, str]:
+    """Compile every library in `names` that is not built yet, one nvcc
+    process per source, all started together.  Returns each name's
+    compiler output (its `-Xptxas -v` report), "" when it was cached."""
+    BUILD_DIR.mkdir(exist_ok=True)
+    procs = {}
+    reports = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            reports[name] = ""
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(SRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT,
+                                        text=True), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        reports[name] = log
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for csrc/{name}.cu "
+                          f"(exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _loaded[name] = lib
+        return lib
