@@ -30,12 +30,18 @@ hung run with a traceback and a nonzero exit.
 
 A level's bound is the larger of its bytes over 3.35 TB/s and its
 operations over 67 T/s (H100 SXM data sheet: HBM rate and the non-tensor
-32-bit rate).  Bytes: the five word maps the level reads or writes
-(fw, vw, reach in; nfw, vw' out), the label planes of the set bits of d
-(read and written), one CSC offset per candidate vertex (reachable and
-unvisited), and the in-edge ids a candidate must read before its first
-frontier hit (all of them when there is none).  Operations: three per
-in-edge read.
+32-bit rate).  Bytes: vw and reach read whole and nfw written whole;
+one CSC offset per candidate vertex (reachable and unvisited); the
+in-edge ids a candidate must read up to its first frontier hit (all of
+them when there is none) and the frontier words those ids point to;
+and, for each word that gains a vertex, the vw' word and the label
+plane word of each set bit of d written.  Operations: three per in-edge
+read.
+
+Phase 5 also replays its 64 searches to their known depths with no host
+sync between levels, queued behind a device sleep, so that CUDA events
+time the card's work alone; the card's idle share of the call is one
+minus that time over the call's wall time.
 """
 
 from __future__ import annotations
@@ -109,18 +115,21 @@ def level_work(g, fw, vw, reach, d, n_planes):
     st = g.stepper
     n, m = st.n, st.in_src.numel()
     cand = unpack_bitmap(reach & ~vw, n)
+    dst = st.edge_dst()
     hit = unpack_bitmap(fw, g.n_words * 32)[st.in_src.long()]
     pos = torch.arange(m, device=fw.device)
     first = torch.full((n,), m, dtype=torch.int64, device=fw.device)
-    first.scatter_reduce_(0, st.edge_dst(), torch.where(hit, pos, m),
-                          "amin")
-    beg = st.offsets[:-1].long()
-    deg = st.offsets[1:].long() - beg
-    scanned = torch.where(first < m, first - beg + 1, deg)
-    edges = int(scanned[cand].sum())
-    n_cand = int(cand.sum())
+    first.scatter_reduce_(0, dst, torch.where(hit, pos, m), "amin")
+    # a candidate reads its in-edges up to its first frontier hit, or
+    # all of them when there is none
+    scanned = cand[dst] & (pos <= first[dst])
+    edges = int(scanned.sum())
+    fw_words = int(torch.unique(st.in_src[scanned] >> 5).numel())
+    new = torch.nonzero(cand & (first < m)).squeeze(1)
+    changed = int(torch.unique(new >> 5).numel())
     planes_hit = bin(d & ((1 << n_planes) - 1)).count("1")
-    nbytes = 4 * g.n_words * (5 + 2 * planes_hit) + 4 * n_cand + 4 * edges
+    nbytes = 4 * (3 * g.n_words + fw_words + int(cand.sum()) + edges
+                  + changed * (1 + planes_hit))
     return nbytes, 3 * edges
 
 
@@ -144,6 +153,44 @@ def event_ms(run, restore, reps):
     torch.cuda.synchronize()
     times = sorted(s.elapsed_time(e) for s, e in pairs)
     return times[len(times) // 2]
+
+
+def replay_ms(g, srcs, depths, vws):
+    """Device ms of each search of `srcs` run again to its known depth
+    with no host sync between levels; the launches are queued behind a
+    device sleep, so the events time the card alone.  The visited words
+    must equal `vws`, the main run's."""
+    st = g.stepper
+    runs = []
+    for s, depth in zip(srcs, depths):
+        psrc = g.internal(int(s))
+        fw = g.start(psrc)
+        runs.append(dict(fw=fw, vw=fw.clone(), reach=g.reach(psrc),
+                         depth=int(depth),
+                         planes=torch.zeros((8 * g.rows, 128),
+                                            dtype=torch.int32,
+                                            device=fw.device),
+                         start=torch.cuda.Event(enable_timing=True),
+                         end=torch.cuda.Event(enable_timing=True)))
+    asleep = torch.cuda.Event()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    asleep.record()
+    for r in runs:
+        fw = r["fw"]
+        r["start"].record()
+        for d in range(1, r["depth"] + 1):
+            fw, _ = st.step(fw, r["vw"], r["planes"], d, r["reach"])
+        r["end"].record()
+    if asleep.query():
+        raise AssertionError("the card woke before the replay was queued; "
+                             "its events would hold host gaps")
+    torch.cuda.synchronize()
+    for i, r in enumerate(runs):
+        if not np.array_equal(r["vw"].cpu().numpy(), vws[i]):
+            raise AssertionError(f"replay of search {i} differs from the "
+                                 "main run")
+    return [r["start"].elapsed_time(r["end"]) for r in runs]
 
 
 def compare_search(g, psrc, label):
@@ -295,6 +342,15 @@ def main() -> int:
           f" best {best:.3f} ms ({best / MULTI_K:.4f} ms/search), median "
           f"{med:.3f} ms; {edges / (best * 1e-3) / 1e9:.4f} GTEPS; "
           f"{per_search:.3f} launches per search [{card}]", flush=True)
+    card_ms = replay_ms(bfs_pallas.search_graph(csr20, dev), srcs, deps,
+                        vws)
+    busy = sum(card_ms)
+    print(f"  replay, no host sync between levels: step kernels "
+          f"{busy:.4f} ms for {MULTI_K} searches ({busy / MULTI_K:.5f} "
+          f"ms/search; per search min {min(card_ms):.5f}, max "
+          f"{max(card_ms):.5f}); card idle {100 * (1 - busy / best):.2f}%"
+          f" of the best call, {100 * (1 - busy / med):.2f}% of the "
+          f"median [{card}]", flush=True)
     done(t0)
 
     for name, count in launches.items():

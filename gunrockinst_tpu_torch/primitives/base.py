@@ -1,11 +1,9 @@
 """Primitive scaffolding: result stats, timing.
 
-Counterpart of the JAX package's `primitives/base.py`.  The stats block
-mirrors the reference's printed metric schema (tests/bfs/test_bfs.cu:
-210-235, app/bfs/bfs_app.cu:93-120): elapsed ms, M-Edges/s (TEPS),
-search depth, nodes/edges visited, total_queued, redundant work %.
-`Stats.route` names the route a search took, so that a fallback
-cannot hide.
+Counterpart of the JAX package's `primitives/base.py`.  `Stats` holds
+the reference's per-search numbers (tests/bfs/test_bfs.cu:210-235):
+elapsed ms, search depth, nodes and edges visited.  `Stats.route`
+names the route a search took, so that a fallback cannot hide.
 """
 
 from __future__ import annotations
@@ -25,40 +23,9 @@ class Stats:
     search_depth: int = 0
     nodes_visited: int = 0
     edges_visited: int = 0
-    total_queued: int = 0
     # search route: "step8" (8 label planes) or "step_full" (rerun with
     # bit_length(n+1) planes after the 8-plane cap overflowed)
     route: str = ""
-
-    @property
-    def m_teps(self) -> float:
-        """Millions of traversed edges per second (test_bfs.cu:215)."""
-        if self.elapsed_ms <= 0:
-            return 0.0
-        return self.edges_visited / (self.elapsed_ms * 1000.0)
-
-    @property
-    def redundant_pct(self) -> float:
-        """Redundant work % (app/bfs/bfs_app.cu:115): queued minus
-        useful, over useful; 0 when total_queued was not tracked."""
-        if self.edges_visited == 0 or self.total_queued == 0:
-            return 0.0
-        return max(0.0, 100.0 * (self.total_queued - self.edges_visited)
-                   / self.edges_visited)
-
-    def display(self, name: str) -> str:
-        """Print the reference's full metric block (app/bfs/
-        bfs_app.cu:93-120)."""
-        out = (f"[{name}] elapsed: {self.elapsed_ms:.4f} ms, rate: "
-               f"{self.m_teps:.4f} MiEdges/s, search_depth: "
-               f"{self.search_depth}, nodes_visited: {self.nodes_visited}, "
-               f"edges_visited: {self.edges_visited}, total_queued: "
-               f"{self.total_queued or self.edges_visited}, "
-               f"redundant_work: {self.redundant_pct:.2f}%")
-        if self.route:
-            out += f", route: {self.route}"
-        print(out)
-        return out
 
 
 def sync(device: torch.device) -> None:

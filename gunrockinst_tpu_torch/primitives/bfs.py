@@ -63,9 +63,6 @@ def run(graph: CsrGraph, src: int, mark_preds: bool = True,
                       if visited.any() else 0),
         nodes_visited=int(visited.sum()),
         edges_visited=int(deg[visited].sum()),
-        # pull kernel: dedup is exact (bit OR), so enqueue count ==
-        # useful edge visits, 0% redundant
-        total_queued=int(deg[visited].sum()),
         route=bfs_pallas.get_fused_bfs(graph, dev).route,
     )
     return BfsResult(labels=labels_np, preds=preds_np, stats=stats)

@@ -35,6 +35,7 @@ from gunrockinst_tpu_torch.ops.words import host_unpack_words
 from gunrockinst_tpu_torch.primitives.base import INF32, Timer, sync
 
 REACH_CACHE = 64    # per-source reach masks kept on the device
+MULTI_PLANES = 8    # label planes of a multi-search (its labels are dropped)
 
 
 class SearchGraph:
@@ -171,7 +172,7 @@ def get_fused_bfs(csr: CsrGraph, device: DeviceLike = None) -> _FusedBfs:
 _multi_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
-def get_fused_bfs_multi(csr: CsrGraph, reps: int = 8, planes: int = 8,
+def get_fused_bfs_multi(csr: CsrGraph, reps: int = 8,
                         device: DeviceLike = None):
     """`reps` complete BFS searches per call, one after another.
 
@@ -183,7 +184,7 @@ def get_fused_bfs_multi(csr: CsrGraph, reps: int = 8, planes: int = 8,
     permutation."""
     dev = resolve_device(device)
     per_graph = _multi_cache.setdefault(csr, {})
-    hit = per_graph.get((reps, planes, dev))
+    hit = per_graph.get((reps, dev))
     if hit is not None:
         return hit
     g = search_graph(csr, dev)
@@ -202,7 +203,7 @@ def get_fused_bfs_multi(csr: CsrGraph, reps: int = 8, planes: int = 8,
         with Timer() as t:
             depths, vws = [], []
             for i, p in enumerate(psrcs):
-                _, vw, depth, _ = g.search(p, reach[i], planes, n)
+                _, vw, depth, _ = g.search(p, reach[i], MULTI_PLANES, n)
                 depths.append(depth)
                 vws.append(vw)
             sync(dev)
@@ -216,7 +217,7 @@ def get_fused_bfs_multi(csr: CsrGraph, reps: int = 8, planes: int = 8,
         return bits if g.perm is None else bits[g.perm]
 
     fn.visited_of = visited_of
-    per_graph[(reps, planes, dev)] = fn
+    per_graph[(reps, dev)] = fn
     return fn
 
 
@@ -234,15 +235,13 @@ def post_preds(labels: torch.Tensor, esrc: torch.Tensor,
 
 
 def bfs_pallas_fused(csr: CsrGraph, src: int, mark_preds: bool = True,
-                     variant: str = "mega", device: DeviceLike = None
+                     device: DeviceLike = None
                      ) -> Tuple[np.ndarray, Optional[np.ndarray], int,
                                 float]:
     """Returns (labels, preds|None, depth, device_ms); device_ms is the
-    search time (extraction excluded)."""
-    if variant != "mega":
-        raise NotImplementedError(
-            f"variant {variant!r} (the grid-stepped sweep kernels) is not "
-            "ported yet: ROADMAP.md queue 1, item 9")
+    search time (extraction excluded).  Only the reference's "mega"
+    variant is ported; the grid-stepped sweeps are ROADMAP.md queue 1,
+    item 9."""
     fn = get_fused_bfs(csr, device)
     labels_np, depth, device_ms = fn(src)
     preds_np = None
