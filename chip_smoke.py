@@ -6,8 +6,8 @@
 Phases, each of which raises on failure:
 
   1. device  - the card's name and power limit (nvidia-smi);
-  2. build   - compile every kernel of the BFS main path from
-               gunrockinst_tpu_torch/csrc/ (one nvcc per source, all
+  2. build   - compile every kernel of the BFS and value-plane paths
+               from gunrockinst_tpu_torch/csrc/ (one nvcc per source, all
                started together, into gunrockinst_tpu_torch/_build/);
   3. kernel  - at rmat-s14 and rmat-s20 (ef16, undirected, seed 42), for
                every level of one search from the top-degree vertex and
@@ -22,11 +22,38 @@ Phases, each of which raises on failure:
                top-degree sources (bench.py's choice): every visited set
                equals the oracle's; ms per search and GTEPS.
 
-Launch counts are zeroed just before phase 4 and read just after phase 5;
-a kernel of the path with no launch there fails the run.  The last lines
-are the kernels line, the nvidia-smi line and {"ok": true, ...}.  Without
-CUDA the script exits nonzero and prints no result; a watchdog ends a
-hung run with a traceback and a nonzero exit.
+  6. value   - at rmat-s14 and rmat-s20, one sweep of the value kernel
+               in each of its four configurations (sssp_w, sssp_c, cc,
+               pr) on seeded inputs equals its plain PyTorch version:
+               the min configurations bit for bit, changed map and count
+               included; pr allclose (rtol 1e-5, atol 1e-6) and bitwise
+               equal between two kernel runs.  At s20 each configuration
+               is timed (CUDA events, median of repeats) for the kernel
+               and the plain version, beside its bound; for pr also one
+               library call for the same sums, a CSR SpMV.  Then, at
+               s20, each configuration again at every long-list
+               threshold of LONG_DEGREES: equal to the plain version,
+               and its kernel timed;
+  7. sssp    - sssp.run(csr, top-degree src, mode="planes") at rmat-s20,
+               unweighted and with integer weights 1..63: distances
+               equal scipy's Dijkstra cast to f32, bit for bit; preds
+               of one run at rmat-s14 equal the NumPy oracle's; the
+               unweighted run's rounds are replayed with no host sync
+               for the card's busy time;
+  8. cc      - cc.run(csr, mode="planes") at rmat-s20: component ids equal
+               the minimum vertex id of each scipy component;
+  9. pr      - pr.run(csr, max_iter=5, mode="planes") at rmat-s20 is
+               allclose (rtol 1e-4, atol 1e-6) to the NumPy oracle, and
+               two calls give the same bits.
+
+Launch counts of the BFS kernel are zeroed just before phase 4 and read
+just after phase 5; those of the value kernel are zeroed just before
+and read just after each entry-point call of phases 7-9 (sssp, sssp
+weighted, cc, pr), so the replay and the rmat-s14 check do not count.
+A path with no launch in its window fails the run.  The last lines are the kernels line, the nvidia-smi line
+and {"ok": true, ...}.  Without CUDA the script exits nonzero and prints
+no result; a watchdog ends a hung run with a traceback and a nonzero
+exit.
 
 A level's bound is the larger of its bytes over 3.35 TB/s and its
 operations over 67 T/s (H100 SXM data sheet: HBM rate and the non-tensor
@@ -38,10 +65,16 @@ and, for each word that gains a vertex, the vw' word and the label
 plane word of each set bit of d written.  Operations: three per in-edge
 read.
 
-Phase 5 also replays its 64 searches to their known depths with no host
-sync between levels, queued behind a device sleep, so that CUDA events
-time the card's work alone; the card's idle share of the call is one
-minus that time over the call's wall time.
+A value sweep's bound counts the CSC offsets and in-edge ids read
+whole, the weights of the edges whose source is active (sssp_w), the
+values read and written once, the ch map read (gated configurations)
+and the changed map written; operations: one gate test per in-edge and
+two per active in-edge (add, combine).
+
+Phases 5 and 7 also replay their searches (levels, rounds) with no host
+sync in between, queued behind a device sleep, so that CUDA events time
+the card's work alone; the card's idle share of the call is one minus
+that time over the call's wall time.
 """
 
 from __future__ import annotations
@@ -51,28 +84,44 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from gunrockinst_tpu_torch.device import resolve_device
+from gunrockinst_tpu_torch.graph.csr import CsrGraph
 from gunrockinst_tpu_torch.graph.relabel import is_symmetric
 from gunrockinst_tpu_torch.graph.rmat import rmat_graph
-from gunrockinst_tpu_torch.ops import _build, mega
-from gunrockinst_tpu_torch.ops.words import unpack_bitmap
-from gunrockinst_tpu_torch.oracles import bfs_reference
-from gunrockinst_tpu_torch.primitives import bfs, bfs_pallas
+from gunrockinst_tpu_torch.ops import _build, mega, value
+from gunrockinst_tpu_torch.ops.words import unpack_bitmap, words_from_mask
+from gunrockinst_tpu_torch.oracles import (bfs_reference,
+                                           pagerank_reference,
+                                           sssp_reference)
+from gunrockinst_tpu_torch.primitives import bfs, bfs_pallas, cc, pr, sssp
 
 WATCHDOG_S = 1100          # under the 1200 s limit of a smoke run
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 SEED = 42
 MULTI_K = 64
-KERNELS = {   # every kernel of the BFS main path
+KERNELS = {   # every kernel of the BFS and value-plane paths
     "mega_step": dict(
         route="cuda", source="gunrockinst_tpu_torch/csrc/mega_step.cu",
         replaces="gunrockinst_tpu/ops/pallas_mega.py:422"),
+    "value_step": dict(
+        route="cuda", source="gunrockinst_tpu_torch/csrc/value_step.cu",
+        replaces="gunrockinst_tpu/ops/pallas_value.py:608"),
 }
+# the value kernel's configurations on the path (ops/value.py keywords)
+VALUE_CONFIGS = {
+    "sssp_w": dict(mode="min", f32=True),          # weights per edge
+    "sssp_c": dict(mode="min", f32=True, const_w=1.0),
+    "cc": dict(mode="min", f32=False),
+    "pr": dict(mode="add", f32=True, use_active=False),
+}
+LONG_DEGREES = (32, 64, 128, 256, 512)   # phase 6's threshold sweep, s20
+PR_ITERS = 5
 INF32 = np.iinfo(np.int32).max
 
 
@@ -257,8 +306,301 @@ def time_levels(g, levels, reach):
     return rows
 
 
+def value_case(g, name, rng):
+    """(stepper, vals, ch) of one configuration on g's device CSC, with
+    seeded inputs: f32 values in [0, 100) with 30% inf, or i32 labels
+    in [0, n), or f32 contributions in [0, 1); half the ch bits set
+    (all of them for pr); integer weights 1..63 for sssp_w."""
+    st = g.stepper
+    n_pad, m = g.n_words * 32, st.in_src.numel()
+    kw = dict(VALUE_CONFIGS[name])
+    if name == "sssp_w":
+        kw["weights"] = torch.from_numpy(
+            rng.integers(1, 64, m).astype(np.float32)).to(g.device)
+    stepper = value.ValueStepper(st.offsets, st.in_src, **kw)
+    if name == "cc":
+        vals = rng.integers(0, g.n, n_pad).astype(np.int32)
+    elif name == "pr":
+        vals = rng.random(n_pad, dtype=np.float32).view(np.int32)
+    else:
+        f = (rng.random(n_pad, dtype=np.float32) * 100).astype(np.float32)
+        f[rng.random(n_pad) < 0.3] = np.inf
+        vals = f.view(np.int32)
+    active = rng.random(n_pad) < (1.0 if name == "pr" else 0.5)
+    ch = torch.from_numpy(words_from_mask(active, g.n_words)).to(g.device)
+    return stepper, torch.from_numpy(vals).to(g.device), ch
+
+
+def compare_value(stepper, vals, ch, label):
+    """One sweep through the kernel and the plain version; raises on a
+    difference.  Returns the largest |kernel - plain| of the values."""
+    got = stepper.sweep(vals, ch)
+    torch.cuda.synchronize()
+    want = stepper.reference(vals, ch)
+    dtype = torch.float32 if stepper.f32 else torch.int32
+    x, y = got[0].view(dtype), want[0].view(dtype)
+    both = torch.isfinite(x) & torch.isfinite(y) if stepper.f32 else \
+        torch.ones_like(x, dtype=torch.bool)
+    err = float((x[both].double() - y[both].double()).abs().max())
+    if stepper.mode == "min":
+        for what, a, b in zip(("out", "changed", "n_changed"), got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label}: kernel {what} differs from "
+                                     f"the plain version (max |diff| "
+                                     f"{err})")
+        tol = "bitwise"
+    else:
+        if not torch.allclose(x, y, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"{label}: kernel sums differ from the "
+                                 f"plain version beyond rtol 1e-5, atol "
+                                 f"1e-6 (max |diff| {err})")
+        again = stepper.sweep(vals, ch)[0]
+        if not torch.equal(again, got[0]):
+            raise AssertionError(f"{label}: two kernel runs differ")
+        tol = "allclose rtol 1e-5 atol 1e-6, two runs bitwise"
+    print(f"  {label}: equal to the plain version ({tol}; max |diff| "
+          f"{err:.3g}, changed {int(got[2])})", flush=True)
+    return err
+
+
+def value_work(stepper, vals, ch):
+    """(bytes, operations) one sweep needs on these inputs."""
+    n, m = stepper.n, stepper.in_src.numel()
+    n_pad, n_words = stepper.n_pad, stepper.n_words
+    if stepper.use_active:
+        active = int(unpack_bitmap(ch, n_pad)[stepper.in_src.long()].sum())
+    else:
+        active = m
+    nbytes = 4 * ((n + 1) + m + 2 * n_pad + n_words + 1)
+    if stepper.weights is not None:
+        nbytes += 4 * active
+    if stepper.use_active:
+        nbytes += 4 * n_words
+    ops = (m if stepper.use_active else 0) + 2 * active
+    return nbytes, ops
+
+
+def time_value(stepper, vals, ch, name):
+    """Kernel, plain and (pr) library ms of one sweep, and its bound."""
+    out = torch.empty_like(vals)
+    k_ms = event_ms(lambda: stepper.sweep(vals, ch, out=out),
+                    lambda: None, 20)
+    p_ms = event_ms(lambda: stepper.reference(vals, ch), lambda: None, 5)
+    lib_ms = None
+    if name == "pr":
+        # yardstick only: the same sums by one library call, a CSR SpMV
+        # of the CSC with unit values; never used by the port
+        st = stepper
+        with warnings.catch_warnings():    # sparse CSR is "beta"
+            warnings.simplefilter("ignore")
+            a = torch.sparse_csr_tensor(
+                st.offsets, st.in_src,
+                torch.ones(st.in_src.numel(), dtype=torch.float32,
+                           device=vals.device), size=(st.n, st.n))
+        x = vals[: st.n].view(torch.float32).clone()
+        lib = a @ x
+        err = float((lib - out[: st.n].view(torch.float32)).abs().max())
+        lib_ms = event_ms(lambda: a @ x, lambda: None, 20)
+        print(f"  pr library SpMV: max |diff| to the kernel {err:.3g}",
+              flush=True)
+    nbytes, ops = value_work(stepper, vals, ch)
+    row = dict(name=name, bytes=nbytes, ops=ops, ms=k_ms, plain_ms=p_ms,
+               library_ms=lib_ms, bound_ms=bound_ms(nbytes, ops))
+    print(f"  {name}: {nbytes} B, kernel {k_ms * 1e3:.1f} us, plain "
+          f"{p_ms * 1e3:.1f} us, bound {row['bound_ms'] * 1e3:.2f} us"
+          + ("" if lib_ms is None else f", library {lib_ms * 1e3:.1f} us"),
+          flush=True)
+    return row
+
+
+def replay_rounds_ms(stepper, vals, ch, rounds, want):
+    """Device ms of `rounds` sweeps from (vals, ch) with no host sync in
+    between, queued behind a device sleep; the final values must equal
+    `want` (the main run's, in search ids)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    asleep = torch.cuda.Event()
+    spare = torch.empty_like(vals)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    asleep.record()
+    start.record()
+    for _ in range(rounds):
+        out, ch, _ = stepper.sweep(vals, ch, out=spare)
+        vals, spare = out, vals
+    end.record()
+    if asleep.query():
+        raise AssertionError("the card woke before the replay was queued; "
+                             "its events would hold host gaps")
+    torch.cuda.synchronize()
+    if not torch.equal(vals, want):
+        raise AssertionError("the replayed rounds differ from the main run")
+    return start.elapsed_time(end)
+
+
+def scipy_dist(csr, src):
+    """Dijkstra distances from scipy, cast to f32 (exact for the integer
+    weights used here: every distance is an integer below 2^24)."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+    w = (np.ones(csr.num_edges) if csr.edge_values is None
+         else csr.edge_values.astype(np.float64))
+    a = csr_matrix((w, csr.col_indices, csr.row_offsets),
+                   shape=(csr.num_nodes, csr.num_nodes))
+    return dijkstra(a, indices=src).astype(np.float32)
+
+
+def scipy_components(csr):
+    """Minimum vertex id of each scipy (weak) component, per vertex."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+    n = csr.num_nodes
+    a = csr_matrix((np.ones(csr.num_edges, np.int8), csr.col_indices,
+                    csr.row_offsets), shape=(n, n))
+    k, labels = connected_components(a, directed=True, connection="weak")
+    first = np.full(k, n, np.int64)
+    np.minimum.at(first, labels, np.arange(n))
+    return first[labels].astype(np.int32)
+
+
+def long_degree_sweep(cases, card):
+    """Each s20 case again at every threshold of LONG_DEGREES: equal
+    to the plain version, and the kernel's median ms.  Returns the
+    largest |kernel - plain| and {name: {threshold: ms}}."""
+    err, table = 0.0, {}
+    for name, (base, vals, ch) in cases.items():
+        out = torch.empty_like(vals)
+        table[name] = {}
+        for t in LONG_DEGREES:
+            st = value.ValueStepper(base.offsets, base.in_src,
+                                    weights=base.weights, long_degree=t,
+                                    **VALUE_CONFIGS[name])
+            err = max(err, compare_value(
+                st, vals, ch, f"s20 {name} long_degree {t}"))
+            table[name][t] = event_ms(
+                lambda: st.sweep(vals, ch, out=out), lambda: None, 20)
+        print(f"  {name} kernel us by long-list threshold: " + ", ".join(
+            f"{t}: {ms * 1e3:.1f}" for t, ms in table[name].items())
+            + f" [{card}]", flush=True)
+    return err, table
+
+
+def value_phase(csrs, dev, card):
+    """Phase 6: returns (largest |kernel - plain|, s20 timing rows,
+    the s20 threshold sweep)."""
+    t0 = phase("6 value kernel vs plain version")
+    value_err, value_rows, cases = 0.0, [], {}
+    for scale in (14, 20):
+        g = bfs_pallas.search_graph(csrs[scale], dev)
+        rng = np.random.default_rng(SEED + scale)
+        for name in VALUE_CONFIGS:
+            stepper, vals, ch = value_case(g, name, rng)
+            value_err = max(value_err, compare_value(
+                stepper, vals, ch, f"s{scale} {name}"))
+            if scale == 20:
+                value_rows.append(time_value(stepper, vals, ch, name))
+                cases[name] = (stepper, vals, ch)
+    err, sweep = long_degree_sweep(cases, card)
+    print(f"  [{card}]", flush=True)
+    done(t0)
+    return max(value_err, err), value_rows, sweep
+
+
+def sssp_phase(csr20, csr14, dev, card, counts):
+    """Phase 7: SSSP at rmat-s20, unweighted and weighted, against
+    scipy; preds at rmat-s14 against the oracle.  Puts the value
+    kernel's launches of each s20 sssp.run into `counts`."""
+    t0 = phase("7 sssp.run planes, rmat-s20")
+    src = sources(csr20)[0]
+    m = csr20.num_edges
+    value.launches = 0
+    res = sssp.run(csr20, src, mode="planes", mark_preds=False)
+    counts["sssp"] = value.launches
+    if not np.array_equal(res.dist, scipy_dist(csr20, src)):
+        raise AssertionError("sssp distances differ from scipy's Dijkstra")
+    ms = res.stats.elapsed_ms
+    fn = sssp.get_sssp_planes(csr20, dev)
+    vals, ch = fn.start(src)
+    want = fn.g.to_internal(torch.from_numpy(res.dist).to(dev)).view(
+        torch.int32)
+    want[csr20.num_nodes:] = vals[csr20.num_nodes:]
+    busy = replay_rounds_ms(fn.stepper, vals, ch, res.stats.search_depth,
+                            want)
+    print(f"  unweighted: exact vs scipy; {res.stats.search_depth} rounds, "
+          f"{ms:.3f} ms, {m / (ms * 1e6):.4f} G edges/s; replay, no host "
+          f"sync: sweeps {busy:.4f} ms, card idle "
+          f"{100 * (1 - busy / ms):.2f}% of the call [{card}]", flush=True)
+    weights = np.random.default_rng(SEED).integers(1, 64, m).astype(
+        np.float32)
+    wcsr = CsrGraph.from_arrays(csr20.row_offsets, csr20.col_indices,
+                                weights)
+    value.launches = 0
+    res = sssp.run(wcsr, src, mode="planes", mark_preds=False)
+    counts["sssp weighted"] = value.launches
+    if not np.array_equal(res.dist, scipy_dist(wcsr, src)):
+        raise AssertionError("weighted sssp distances differ from scipy's "
+                             "Dijkstra")
+    ms = res.stats.elapsed_ms
+    print(f"  weights 1..63: exact vs scipy; {res.stats.search_depth} "
+          f"rounds, {ms:.3f} ms, {m / (ms * 1e6):.4f} G edges/s [{card}]",
+          flush=True)
+    src14 = sources(csr14)[0]
+    res = sssp.run(csr14, src14, mode="planes", mark_preds=True)
+    ref_dist, ref_preds = sssp_reference(csr14, src14)
+    if not (np.array_equal(res.dist, ref_dist)
+            and np.array_equal(res.preds, ref_preds)):
+        raise AssertionError("rmat-s14 sssp distances or preds differ from "
+                             "the oracle")
+    print("  rmat-s14 with preds: distances and preds equal the oracle",
+          flush=True)
+    done(t0)
+
+
+def cc_phase(csr20, card, counts):
+    """Phase 8: CC at rmat-s20 against scipy."""
+    t0 = phase("8 cc.run planes, rmat-s20")
+    value.launches = 0
+    res = cc.run(csr20, mode="planes")
+    counts["cc"] = value.launches
+    if not np.array_equal(res.component_ids, scipy_components(csr20)):
+        raise AssertionError("cc component ids differ from scipy's")
+    ms = res.stats.elapsed_ms
+    print(f"  exact vs scipy; {res.num_components} components, "
+          f"{res.stats.search_depth} rounds, {ms:.3f} ms, "
+          f"{csr20.num_edges / (ms * 1e6):.4f} G edges/s [{card}]",
+          flush=True)
+    done(t0)
+
+
+def pr_phase(csr20, card, counts):
+    """Phase 9: PR at rmat-s20, twice, against the NumPy oracle."""
+    t0 = phase(f"9 pr.run planes max_iter={PR_ITERS}, rmat-s20")
+    value.launches = 0
+    res = pr.run(csr20, max_iter=PR_ITERS, mode="planes")
+    again = pr.run(csr20, max_iter=PR_ITERS, mode="planes")
+    counts["pr"] = value.launches
+    if not np.array_equal(res.ranks.view(np.int32),
+                          again.ranks.view(np.int32)):
+        raise AssertionError("two pr.run calls give different ranks")
+    ref = pagerank_reference(csr20, 0.85, 0.01, max_iter=PR_ITERS)
+    if not np.allclose(res.ranks, ref, rtol=1e-4, atol=1e-6):
+        raise AssertionError("pr ranks differ from the oracle beyond rtol "
+                             "1e-4, atol 1e-6")
+    it, m = res.stats.search_depth, csr20.num_edges
+    for r in (res, again):
+        ms = r.stats.elapsed_ms
+        print(f"  {it} iterations, {ms:.3f} ms, "
+              f"{m * it / (ms * 1e6):.4f} G edge-updates/s [{card}]",
+              flush=True)
+    print(f"  allclose to the oracle (max |diff| "
+          f"{float(np.abs(res.ranks - ref).max()):.3g}); two calls "
+          f"bitwise equal", flush=True)
+    done(t0)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
               file=sys.stderr)
@@ -280,9 +622,9 @@ def main() -> int:
 
     t0 = phase("3 kernel vs plain version")
     max_err, timing = 0, None
-    csr20 = None
+    csrs = {}
     for scale in (14, 20):
-        csr = graph(scale)
+        csr = csrs[scale] = graph(scale)
         g = bfs_pallas.search_graph(csr, dev)
         for which, src in zip(("top-degree", "random"), sources(csr)):
             levels, reach, err = compare_search(
@@ -290,8 +632,7 @@ def main() -> int:
             max_err = max(max_err, err)
             if scale == 20 and which == "top-degree":
                 timing = time_levels(g, levels, reach)
-        if scale == 20:
-            csr20 = csr
+    csr14, csr20 = csrs[14], csrs[20]
     done(t0)
 
     # ---- the main path: counts from here on --------------------------
@@ -353,24 +694,48 @@ def main() -> int:
           f"median [{card}]", flush=True)
     done(t0)
 
-    for name, count in launches.items():
+    value_err, value_rows, sweep = value_phase(csrs, dev, card)
+
+    # ---- the value-plane paths: one count window per entry point -----
+    by_path = {}
+    sssp_phase(csr20, csr14, dev, card, by_path)
+    cc_phase(csr20, card, by_path)
+    pr_phase(csr20, card, by_path)
+    launches["value_step"] = sum(by_path.values())
+    # ---- end of the value-plane paths --------------------------------
+    print(f"  value_step launches per path: {by_path}", flush=True)
+
+    for name, count in {**launches, **by_path}.items():
         if count <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 "main path")
-    line = []
-    for name, info in KERNELS.items():
-        line.append(dict(
-            name=name, **info, launches=launches[name],
-            max_abs_err=max_err,
-            ms=sum(r["ms"] for r in timing),
-            plain_ms=sum(r["plain_ms"] for r in timing),
-            bound_ms=sum(r["bound_ms"] for r in timing),
-            bound_by=("bytes" if sum(r["bytes"] for r in timing)
-                      / HBM_BYTES_PER_S >= sum(r["ops"] for r in timing)
-                      / OPS_PER_S else "operations"),
-            library_ms=None, matches_plain=True,
-            work="all levels of one rmat-s20 search from the top-degree "
-                 "vertex"))
+            raise AssertionError(f"kernel or path {name} had no launch on "
+                                 "the main path")
+    line = [dict(
+        name="mega_step", **KERNELS["mega_step"],
+        launches=launches["mega_step"], max_abs_err=max_err,
+        ms=sum(r["ms"] for r in timing),
+        plain_ms=sum(r["plain_ms"] for r in timing),
+        bound_ms=sum(r["bound_ms"] for r in timing),
+        bound_by=("bytes" if sum(r["bytes"] for r in timing)
+                  / HBM_BYTES_PER_S >= sum(r["ops"] for r in timing)
+                  / OPS_PER_S else "operations"),
+        library_ms=None, matches_plain=True,
+        work="all levels of one rmat-s20 search from the top-degree "
+             "vertex")]
+    pr_row = next(r for r in value_rows if r["name"] == "pr")
+    line.append(dict(
+        name="value_step", **KERNELS["value_step"],
+        launches=launches["value_step"], max_abs_err=value_err,
+        ms=pr_row["ms"], plain_ms=pr_row["plain_ms"],
+        bound_ms=pr_row["bound_ms"],
+        bound_by=("bytes" if pr_row["bytes"] / HBM_BYTES_PER_S
+                  >= pr_row["ops"] / OPS_PER_S else "operations"),
+        library_ms=pr_row["library_ms"], matches_plain=True,
+        work="one rmat-s20 sweep of the pr configuration; configs lists "
+             "one sweep of each configuration",
+        configs=[{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms",
+                                    "library_ms")} for r in value_rows],
+        launches_by_path=by_path, ms_by_long_degree=sweep))
+    print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

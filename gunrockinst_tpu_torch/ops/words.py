@@ -47,3 +47,17 @@ def host_unpack_words(words_np: np.ndarray, n: int) -> np.ndarray:
     order (bit b of word w = vertex 32w+b)."""
     return np.unpackbits(np.ascontiguousarray(words_np).reshape(-1).view(
         np.uint8), bitorder="little")[:n]
+
+
+def words_from_mask(mask: np.ndarray, n_words: int) -> np.ndarray:
+    """(k,) bool -> (n_words/128, 128) int32 word map, on the host
+    (the JAX package's `pallas_value.words_from_mask`)."""
+    bits = np.zeros(n_words * 32, np.uint8)
+    bits[: mask.shape[0]] = mask.astype(np.uint8)
+    words = np.packbits(bits, bitorder="little").view(np.int32)
+    return words.reshape(-1, 128)
+
+
+def mask_from_words(words: np.ndarray, n: int) -> np.ndarray:
+    """(rows, 128) int32 word map -> (n,) bool, on the host."""
+    return host_unpack_words(words, n).astype(bool)

@@ -1,3 +1,8 @@
 """NumPy oracles: the ground truth the port is checked against."""
 
-from gunrockinst_tpu_torch.oracles.traversal import bfs_reference  # noqa: F401
+from gunrockinst_tpu_torch.oracles.traversal import (  # noqa: F401
+    bfs_reference, sssp_reference)
+from gunrockinst_tpu_torch.oracles.components import (  # noqa: F401
+    canonicalize_components, cc_reference)
+from gunrockinst_tpu_torch.oracles.ranking import (  # noqa: F401
+    pagerank_reference, remove_dangling_degrees)

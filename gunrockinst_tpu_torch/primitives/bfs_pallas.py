@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's `primitives/bfs_pallas.py`: the mega
 branch of `get_fused_bfs`, `get_fused_bfs_multi`, `bfs_pallas_fused`
-and `_post_preds`, with the same return contracts.
+and `_post_preds` (`SearchGraph.min_preds`), with the same return
+contracts.
 
 The level loop runs on the host: one launch of the step kernel
 (`ops/mega.py`) per level, then one read of the kernel's count of new
@@ -40,18 +41,39 @@ MULTI_PLANES = 8    # label planes of a multi-search (its labels are dropped)
 
 class SearchGraph:
     """The relabeled graph of one CsrGraph on one device: its CSC on the
-    device (through the stepper) and the per-source reach masks."""
+    host (`csc`, with the edge values in CSC order) and on the device
+    (the stepper's `offsets` and `in_src`, which the value sweeps of
+    primitives/sssp.py, cc.py and pr.py share), and the per-source
+    reach masks."""
 
     def __init__(self, csr: CsrGraph, device: torch.device):
         self.n = csr.num_nodes
         self.device = device
         self.csr_p, self.perm = relabeled(csr)
-        csc = self.csr_p.transposed()
-        self.stepper = MegaStepper(csc.row_offsets, csc.col_indices,
-                                   device)
+        self.csc = self.csr_p.transposed()
+        self.stepper = MegaStepper(self.csc.row_offsets,
+                                   self.csc.col_indices, device)
         self.rows = self.stepper.rows
         self.n_words = self.stepper.n_words
         self._reach = {}
+        self._perm = (None if self.perm is None else torch.from_numpy(
+            self.perm.astype(np.int64)).to(device))
+
+    def to_internal(self, x: torch.Tensor, fill=0) -> torch.Tensor:
+        """(n,) values in input ids -> (32 * n_words,) values in search
+        ids, `fill` in the padding."""
+        out = torch.full((self.n_words * 32,), fill, dtype=x.dtype,
+                         device=self.device)
+        if self._perm is None:
+            out[: self.n] = x
+        else:
+            out[self._perm] = x
+        return out
+
+    def to_input(self, t: torch.Tensor) -> torch.Tensor:
+        """(>= n,) values in search ids -> (n,) values in input ids."""
+        t = t[: self.n]
+        return t if self._perm is None else t[self._perm]
 
     def internal(self, src: int) -> int:
         """The search-space id of input vertex `src`."""
@@ -69,6 +91,24 @@ class SearchGraph:
                 self.csr_p, psrc, self.n_words)).to(self.device)
             self._reach[psrc] = hit
         return hit
+
+    def min_preds(self, achieves) -> np.ndarray:
+        """(n,) int32 predecessors in input ids: for each vertex v the
+        least input id of the in-neighbours u with achieves(u, v), -1
+        where there is none (the oracles' min-id tie-break).  achieves
+        takes the search ids of every CSC edge's source and destination,
+        int64 on the device, and returns a bool per edge; the device
+        CSC is the only edge list read."""
+        st = self.stepper
+        u, v = st.in_src.long(), st.edge_dst()
+        ids = self.to_internal(torch.arange(self.n, dtype=torch.int32,
+                                            device=self.device), INF32)
+        preds = torch.full((self.n_words * 32,), INF32, dtype=torch.int32,
+                           device=self.device)
+        preds.scatter_reduce_(0, v, torch.where(achieves(u, v), ids[u],
+                                                INF32), "amin")
+        preds = torch.where(preds == INF32, -1, preds)
+        return self.to_input(preds).cpu().numpy()
 
     def start(self, psrc: int) -> torch.Tensor:
         """The word map holding only vertex `psrc`."""
@@ -221,19 +261,6 @@ def get_fused_bfs_multi(csr: CsrGraph, reps: int = 8,
     return fn
 
 
-def post_preds(labels: torch.Tensor, esrc: torch.Tensor,
-               edst: torch.Tensor) -> torch.Tensor:
-    """preds[v] = min id of the in-neighbours u with labels[u] + 1 ==
-    labels[v], -1 where there is none (`_post_preds`, the min-id
-    tie-break of the oracle)."""
-    ls = labels[esrc].long()
-    cand = (ls != INF32) & (labels[edst].long() == ls + 1)
-    preds = torch.full_like(labels, INF32)
-    preds.scatter_reduce_(0, edst, torch.where(cand, esrc.to(labels.dtype),
-                                               INF32), "amin")
-    return torch.where(preds == INF32, -1, preds)
-
-
 def bfs_pallas_fused(csr: CsrGraph, src: int, mark_preds: bool = True,
                      device: DeviceLike = None
                      ) -> Tuple[np.ndarray, Optional[np.ndarray], int,
@@ -246,21 +273,14 @@ def bfs_pallas_fused(csr: CsrGraph, src: int, mark_preds: bool = True,
     labels_np, depth, device_ms = fn(src)
     preds_np = None
     if mark_preds:
-        preds_np = _preds_for(csr, labels_np, src, fn.g.device)
+        g = fn.g
+        labels = g.to_internal(torch.from_numpy(labels_np).to(g.device),
+                               INF32)
+
+        def achieves(u, v):
+            lu = labels[u].long()
+            return (lu != INF32) & (labels[v].long() == lu + 1)
+
+        preds_np = g.min_preds(achieves)
+        preds_np[src] = -1
     return labels_np, preds_np, int(depth), device_ms
-
-
-def _preds_for(csr: CsrGraph, labels_np: np.ndarray, src: int,
-               device: torch.device) -> np.ndarray:
-    """Predecessors of a finished search, rebuilt from its labels on
-    `device`; preds[src] = -1."""
-    n = csr.num_nodes
-    esrc = torch.repeat_interleave(
-        torch.arange(n, device=device),
-        torch.from_numpy(np.diff(csr.row_offsets).astype(np.int64)
-                         ).to(device))
-    edst = torch.from_numpy(csr.col_indices.astype(np.int64)).to(device)
-    labels = torch.from_numpy(labels_np).to(device)
-    preds_np = post_preds(labels, esrc, edst).cpu().numpy()
-    preds_np[src] = -1
-    return preds_np
