@@ -6,9 +6,10 @@
 Phases, each of which raises on failure:
 
   1. device  - the card's name and power limit (nvidia-smi);
-  2. build   - compile every kernel of the BFS and value-plane paths
-               from gunrockinst_tpu_torch/csrc/ (one nvcc per source, all
-               started together, into gunrockinst_tpu_torch/_build/);
+  2. build   - compile the four kernels (mega_step, value_step,
+               chain_bfs, touch_sweep) from gunrockinst_tpu_torch/csrc/
+               (one nvcc per source, all started together, into
+               gunrockinst_tpu_torch/_build/);
   3. kernel  - at rmat-s14 and rmat-s20 (ef16, undirected, seed 42), for
                every level of one search from the top-degree vertex and
                one from a random vertex, the step kernel's nfw, vw',
@@ -45,15 +46,46 @@ Phases, each of which raises on failure:
   9. pr      - pr.run(csr, max_iter=5, mode="planes") at rmat-s20 is
                allclose (rtol 1e-4, atol 1e-6) to the NumPy oracle, and
                two calls give the same bits.
+ 10. chain   - one search of the chain kernel (whole BFS in one
+               cooperative launch) equals its plain version bit for bit
+               (planes, visited words, depth): a 600-vertex path from
+               vertex 0 first, then grid-64^2 and grid-256^2 from
+               argmax(degrees), rmat-s14 from the top-degree and a
+               random vertex, and grid-1024^2 from argmax(degrees).  At
+               grid-1024^2 the kernel (CUDA events, median of 10) and
+               the plain version are timed beside the bound, and so are
+               (host clock, median of 3) the step_full baseline
+               (SearchGraph.search with full planes, one launch and one
+               host read per level) and the old route (the 8-plane pass,
+               then step_full);
+ 11. deep    - bfs.run(csr, src, traversal_mode="auto") at grid-1024^2
+               from argmax(degrees): route "chain", labels and preds
+               equal the NumPy oracle; one more search once went_deep is
+               set takes exactly one chain launch;
+ 12. touch   - the touched sweep and its fused form (& ~vw) equal the
+               plain version at every level of a top-degree and a random
+               search at rmat-s14 and rmat-s20 (no relabeling); at s20
+               both are timed on the frontier of the top-degree search's
+               level-2 vertices, beside the bound, the plain version and
+               one library call for the same hits, a CSR SpMV of the
+               frontier indicator;
+ 13. swept   - at rmat-s20 from the top-degree vertex:
+               bfs.run(traversal_mode="pallas"), bfs_pallas() with no
+               depth cap and with max_depth=2 give the oracle's labels
+               and preds (cut at depth 2), and get_pull_sweeper_v2's
+               sweep from the source gives the oracle's level 1.
 
 Launch counts of the BFS kernel are zeroed just before phase 4 and read
 just after phase 5; those of the value kernel are zeroed just before
 and read just after each entry-point call of phases 7-9 (sssp, sssp
-weighted, cc, pr), so the replay and the rmat-s14 check do not count.
-A path with no launch in its window fails the run.  The last lines are the kernels line, the nvidia-smi line
-and {"ok": true, ...}.  Without CUDA the script exits nonzero and prints
-no result; a watchdog ends a hung run with a traceback and a nonzero
-exit.
+weighted, cc, pr), so the replay and the rmat-s14 check do not count;
+the chain kernel's around phase 11's bfs.run, and the touched sweep's
+around each entry-point call of phase 13.  Phases 3, 6, 10 and 12,
+which hold kernels against their plain versions and time them, count
+for no path.  A path with no launch in its window fails the run.  The
+last lines are the kernels line, the nvidia-smi line and {"ok": true,
+...}.  Without CUDA the script exits nonzero and prints no result; a
+watchdog ends a hung run with a traceback and a nonzero exit.
 
 A level's bound is the larger of its bytes over 3.35 TB/s and its
 operations over 67 T/s (H100 SXM data sheet: HBM rate and the non-tensor
@@ -70,6 +102,14 @@ whole, the weights of the edges whose source is active (sssp_w), the
 values read and written once, the ch map read (gated configurations)
 and the changed map written; operations: one gate test per in-edge and
 two per active in-edge (add, combine).
+
+A chain search's bound counts the offset and out-edge ids of each
+visited vertex read once and the planes, visited words and depth
+written once; operations: three per out-edge read.  A touched sweep's
+bound counts, as a level's does, one offset per candidate vertex (every
+vertex; the unvisited ones for the fused form), the in-edge ids read up
+to the first frontier hit and the frontier words they point to, and the
+output written (and vw read) whole.
 
 Phases 5 and 7 also replay their searches (levels, rounds) with no host
 sync in between, queued behind a device sleep, so that CUDA events time
@@ -90,11 +130,15 @@ import numpy as np
 import torch
 
 from gunrockinst_tpu_torch.device import resolve_device
+from gunrockinst_tpu_torch.graph.coo import CooGraph
 from gunrockinst_tpu_torch.graph.csr import CsrGraph
+from gunrockinst_tpu_torch.graph.lattice import grid_graph
 from gunrockinst_tpu_torch.graph.relabel import is_symmetric
 from gunrockinst_tpu_torch.graph.rmat import rmat_graph
-from gunrockinst_tpu_torch.ops import _build, mega, value
-from gunrockinst_tpu_torch.ops.words import unpack_bitmap, words_from_mask
+from gunrockinst_tpu_torch.ops import _build, chain, mega, pull, value
+from gunrockinst_tpu_torch.ops.words import (mask_from_words, pack_bitmap,
+                                             start_words, unpack_bitmap,
+                                             words_from_mask)
 from gunrockinst_tpu_torch.oracles import (bfs_reference,
                                            pagerank_reference,
                                            sssp_reference)
@@ -112,7 +156,19 @@ KERNELS = {   # every kernel of the BFS and value-plane paths
     "value_step": dict(
         route="cuda", source="gunrockinst_tpu_torch/csrc/value_step.cu",
         replaces="gunrockinst_tpu/ops/pallas_value.py:608"),
+    "chain_bfs": dict(
+        route="cuda", source="gunrockinst_tpu_torch/csrc/chain_bfs.cu",
+        replaces="gunrockinst_tpu/ops/pallas_mega.py:566"),
+    # one kernel for the three TPU touched sweeps (K4, K5, K6)
+    "touch_sweep": dict(
+        route="cuda", source="gunrockinst_tpu_torch/csrc/touch_sweep.cu",
+        replaces="gunrockinst_tpu/ops/pallas_advance_v3.py:372",
+        also_replaces=["gunrockinst_tpu/ops/pallas_advance_v2.py:291",
+                       "gunrockinst_tpu/ops/pallas_advance_v2.py:317",
+                       "gunrockinst_tpu/ops/pallas_advance.py:144",
+                       "gunrockinst_tpu/ops/pallas_advance.py:191"]),
 }
+CHAIN_PATH = 600       # phase 10's first graph: a path, depth 600
 # the value kernel's configurations on the path (ops/value.py keywords)
 VALUE_CONFIGS = {
     "sssp_w": dict(mode="min", f32=True),          # weights per edge
@@ -159,25 +215,33 @@ def sources(csr):
             int(rng.choice(np.flatnonzero(csr.degrees > 0))))
 
 
-def level_work(g, fw, vw, reach, d, n_planes):
-    """(bytes, operations) one level needs on these inputs."""
-    st = g.stepper
-    n, m = st.n, st.in_src.numel()
-    cand = unpack_bitmap(reach & ~vw, n)
-    dst = st.edge_dst()
-    hit = unpack_bitmap(fw, g.n_words * 32)[st.in_src.long()]
+def pull_work(offsets, in_src, dst, fw, cand):
+    """What a pull over the CSC (offsets, in_src; dst per edge) from
+    frontier words fw must read for the candidate vertices `cand` ((n,)
+    bool): a candidate reads its in-edges up to its first frontier hit,
+    or all of them when there is none.  Returns (in-edge ids read,
+    distinct frontier words they point to, candidates, the candidates
+    with a hit)."""
+    n, m = offsets.numel() - 1, in_src.numel()
+    hit = unpack_bitmap(fw, fw.numel() * 32)[in_src.long()]
     pos = torch.arange(m, device=fw.device)
     first = torch.full((n,), m, dtype=torch.int64, device=fw.device)
     first.scatter_reduce_(0, dst, torch.where(hit, pos, m), "amin")
-    # a candidate reads its in-edges up to its first frontier hit, or
-    # all of them when there is none
     scanned = cand[dst] & (pos <= first[dst])
-    edges = int(scanned.sum())
-    fw_words = int(torch.unique(st.in_src[scanned] >> 5).numel())
-    new = torch.nonzero(cand & (first < m)).squeeze(1)
+    fw_words = int(torch.unique(in_src[scanned] >> 5).numel())
+    return (int(scanned.sum()), fw_words, int(cand.sum()),
+            torch.nonzero(cand & (first < m)).squeeze(1))
+
+
+def level_work(g, fw, vw, reach, d, n_planes):
+    """(bytes, operations) one level needs on these inputs."""
+    st = g.stepper
+    cand = unpack_bitmap(reach & ~vw, st.n)
+    edges, fw_words, cands, new = pull_work(st.offsets, st.in_src,
+                                            st.edge_dst(), fw, cand)
     changed = int(torch.unique(new >> 5).numel())
     planes_hit = bin(d & ((1 << n_planes) - 1)).count("1")
-    nbytes = 4 * (3 * g.n_words + fw_words + int(cand.sum()) + edges
+    nbytes = 4 * (3 * g.n_words + fw_words + cands + edges
                   + changed * (1 + planes_hit))
     return nbytes, 3 * edges
 
@@ -598,6 +662,322 @@ def pr_phase(csr20, card, counts):
     done(t0)
 
 
+def lattice(side):
+    t0 = time.perf_counter()
+    csr = grid_graph(side)
+    print(f"  grid-{side}^2: {csr.num_nodes} vertices, {csr.num_edges} "
+          f"directed edges ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return csr
+
+
+def compare_chain(g, psrc, label):
+    """One chain-kernel search from psrc against the plain version on
+    the same graph; raises on a difference.  Returns (the ChainBfs,
+    its outputs, the largest |kernel - plain|)."""
+    ch = chain.ChainBfs(g, max((g.n + 1).bit_length(), 1))
+    t0 = time.perf_counter()
+    got = ch(psrc)
+    torch.cuda.synchronize()
+    t_kernel = time.perf_counter() - t0
+    st = g.stepper
+    want = chain.chain_reference(st.offsets, st.in_src, psrc, ch.planes,
+                                 g.rows, st.edge_dst())
+    max_err = 0
+    for name, a, b in zip(("planes", "vw", "depth"), got, want):
+        err = int((a.long() - b.long()).abs().max())
+        max_err = max(max_err, err)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: chain kernel {name} differs "
+                                 f"from the plain version (max |diff| "
+                                 f"{err})")
+    print(f"  {label}: depth {int(got[2])}, {ch.planes} planes, equal to "
+          f"the plain version (tolerance: bitwise; grid {ch.grid_blocks} "
+          f"blocks; first call {t_kernel:.3f} s)", flush=True)
+    return ch, got, max_err
+
+
+def chain_work(g, vw, n_planes):
+    """(bytes, operations) a whole search needs: each visited vertex's
+    offset and out-edge ids read once, the planes, visited words and
+    depth written once; three operations per out-edge read."""
+    visited = mask_from_words(vw.cpu().numpy(), g.n)
+    edges = int(np.diff(g.csr_p.row_offsets)[visited].sum())
+    nbytes = 4 * (int(visited.sum()) + edges
+                  + (n_planes + 1) * g.n_words + 1)
+    return nbytes, 3 * edges
+
+
+def wall_ms(run, reps):
+    """Median host-clock ms of run() ended by a device sync (for routes
+    whose host loop syncs every level)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def chain_phase(csr14, dev, card):
+    """Phase 10: the chain kernel against its plain version on a path,
+    grids and rmat-s14; then timed at grid-1024^2 beside the step_full
+    baseline and the old route.  Returns (largest |kernel - plain|, the
+    timing row, the grid-1024^2 graph)."""
+    t0 = phase("10 chain kernel vs plain version")
+    max_err = 0
+    u = np.arange(CHAIN_PATH - 1, dtype=np.int64)
+    path = CsrGraph.from_coo(CooGraph(
+        CHAIN_PATH, np.concatenate([u, u + 1]), np.concatenate([u + 1, u]),
+        None))
+    g = bfs_pallas.search_graph(path, dev)
+    max_err = max(max_err, compare_chain(
+        g, g.internal(0), f"path-{CHAIN_PATH} src 0")[2])
+    for side in (64, 256):
+        csr = lattice(side)
+        g = bfs_pallas.search_graph(csr, dev)
+        src = int(np.argmax(csr.degrees))
+        max_err = max(max_err, compare_chain(
+            g, g.internal(src), f"grid-{side}^2 src {src}")[2])
+    g = bfs_pallas.search_graph(csr14, dev)
+    for which, src in zip(("top-degree", "random"), sources(csr14)):
+        max_err = max(max_err, compare_chain(
+            g, g.internal(src), f"s14 {which} src {src}")[2])
+    side = 1024
+    csr = lattice(side)
+    t1 = time.perf_counter()
+    g = bfs_pallas.search_graph(csr, dev)
+    src = int(np.argmax(csr.degrees))
+    psrc = g.internal(src)
+    reach = g.reach(psrc)
+    print(f"  grid-{side}^2 search graph (relabel, CSC, reach) "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    ch, (planes, vw, depth), err = compare_chain(
+        g, psrc, f"grid-{side}^2 src {src}")
+    max_err = max(max_err, err)
+    depth = int(depth)
+    st = g.stepper
+    k_ms = event_ms(lambda: ch(psrc), lambda: None, 10)
+    p_ms = event_ms(lambda: chain.chain_reference(
+        st.offsets, st.in_src, psrc, ch.planes, g.rows, st.edge_dst()),
+        lambda: None, 1)
+    full = ch.planes
+    step_full_ms = wall_ms(lambda: g.search(psrc, reach, full,
+                                            min(g.n, (1 << full) - 1)), 3)
+    old_ms = wall_ms(lambda: (g.search(psrc, reach, 8, 255),
+                              g.search(psrc, reach, full,
+                                       min(g.n, (1 << full) - 1))), 3)
+    nbytes, ops = chain_work(g, vw, full)
+    row = dict(ms=k_ms, plain_ms=p_ms, bytes=nbytes, ops=ops,
+               bound_ms=bound_ms(nbytes, ops), depth=depth,
+               step_full_ms=step_full_ms, old_route_ms=old_ms,
+               grid_blocks=ch.grid_blocks)
+    print(f"  grid-{side}^2 from {src}: {depth} levels; chain kernel "
+          f"{k_ms:.4f} ms ({k_ms * 1e3 / depth:.3f} us per level, grid "
+          f"{ch.grid_blocks} blocks), plain version {p_ms:.1f} ms; "
+          f"step_full (full planes, host loop) {step_full_ms:.4f} ms; "
+          f"old route (8-plane pass, then step_full) {old_ms:.4f} ms; "
+          f"bound {row['bound_ms'] * 1e3:.2f} us ({nbytes} B, bytes) "
+          f"[{card}]", flush=True)
+    done(t0)
+    return max_err, row, csr
+
+
+def chain_path(csr, dev, card, counts):
+    """Phase 11: bfs.run auto at grid-1024^2 through route "chain",
+    exact against the oracle; the chain kernel's launches of the call
+    go into `counts`, then one more search must take exactly one."""
+    t0 = phase("11 bfs.run auto, grid-1024^2")
+    src = int(np.argmax(csr.degrees))
+    chain.launches = 0
+    res = bfs.run(csr, src, traversal_mode="auto")
+    counts["bfs.run auto, grid-1024^2"] = chain.launches
+    print(f"  route {res.stats.route}, depth {res.stats.search_depth}, "
+          f"{res.stats.nodes_visited} vertices, {res.stats.elapsed_ms:.3f}"
+          f" ms (timed call); chain launches {chain.launches} (warm-up and"
+          f" timed call) [{card}]", flush=True)
+    if res.stats.route != "chain":
+        raise AssertionError(f"route {res.stats.route!r}, expected "
+                             "'chain'")
+    fn = bfs_pallas.get_fused_bfs(csr, device=dev)
+    if not fn.went_deep:
+        raise AssertionError("the deep search did not set went_deep")
+    chain.launches = 0
+    fn(src)
+    if chain.launches != 1:
+        raise AssertionError(f"{chain.launches} chain launches for one "
+                             "search once went_deep is set, expected 1")
+    t1 = time.perf_counter()
+    ref_labels, ref_preds = bfs_reference(csr, src)
+    print(f"  oracle {time.perf_counter() - t1:.1f} s", flush=True)
+    if not np.array_equal(res.labels, ref_labels):
+        raise AssertionError("grid bfs.run labels differ from the oracle")
+    if not np.array_equal(res.preds, ref_preds):
+        raise AssertionError("grid bfs.run preds differ from the oracle")
+    done(t0, "labels and preds exact; one chain launch per search")
+
+
+def compare_touch(sw, fw, vw, label):
+    """The touched sweep and its fused form against the plain version
+    on (fw, vw); raises on a difference.  Returns the largest
+    |kernel - plain|."""
+    dst = sw.edge_dst()
+    max_err = 0
+    for name, got, want in (
+            ("touched", sw(fw), pull.touch_reference(
+                sw.offsets, sw.in_src, fw, None, dst)),
+            ("fused", sw.sweep_fused(fw, vw), pull.touch_reference(
+                sw.offsets, sw.in_src, fw, vw, dst))):
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        max_err = max(max_err, err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: touch_sweep {name} differs "
+                                 f"from the plain version (max |diff| "
+                                 f"{err})")
+    return max_err
+
+
+def touch_levels(sw, src):
+    """(fw, vw) at each level of the search from src, through the plain
+    version: the frontier the level's sweep reads and the visited words
+    before it."""
+    fw = start_words(src, sw.rows, sw.device)
+    vw = fw.clone()
+    levels = []
+    while bool(fw.any()):
+        levels.append((fw, vw))
+        nfw = pull.touch_reference(sw.offsets, sw.in_src, fw, vw,
+                                   sw.edge_dst())
+        fw, vw = nfw, vw | nfw
+    return levels
+
+
+def touch_work(sw, fw, vw):
+    """(bytes, operations) one sweep needs: the frontier words the
+    scanned in-edge ids point to, one offset per candidate vertex (every
+    vertex; the unvisited ones for the fused form), the in-edge ids read
+    up to the first hit, the output written whole (and vw read whole);
+    three operations per in-edge read."""
+    cand = torch.ones(sw.n, dtype=torch.bool, device=fw.device)
+    if vw is not None:
+        cand &= ~unpack_bitmap(vw, sw.n)
+    edges, fw_words, cands, _ = pull_work(sw.offsets, sw.in_src,
+                                          sw.edge_dst(), fw, cand)
+    nbytes = 4 * (fw_words + cands + edges + sw.n_words
+                  * (1 if vw is None else 2))
+    return nbytes, 3 * edges
+
+
+def touch_phase(csrs, dev, card):
+    """Phase 12: the touched sweep, plain and fused, against its plain
+    version at every level of a top-degree and a random search at
+    rmat-s14 and rmat-s20; timed at s20 on the frontier of the level-2
+    vertices of the top-degree search, beside its bound and a library
+    SpMV.  Returns (largest |kernel - plain|, the timing row)."""
+    t0 = phase("12 touched sweep vs plain version")
+    max_err, row = 0, None
+    for scale in (14, 20):
+        csr = csrs[scale]
+        sw = bfs_pallas.get_pull_sweeper(csr, dev)
+        for which, src in zip(("top-degree", "random"), sources(csr)):
+            levels = touch_levels(sw, src)
+            for d, (fw, vw) in enumerate(levels, 1):
+                max_err = max(max_err, compare_touch(
+                    sw, fw, vw, f"s{scale} {which} level {d}"))
+            print(f"  s{scale} {which} src {src}: {len(levels)} levels, "
+                  f"plain and fused equal to the plain version "
+                  f"(tolerance: bitwise)", flush=True)
+            if scale == 20 and which == "top-degree":
+                fw, vw = levels[2]    # the vertices at level 2
+                row = time_touch(sw, fw, vw, card)
+    done(t0)
+    return max_err, row
+
+
+def time_touch(sw, fw, vw, card):
+    """Kernel ms (plain and fused), plain-version ms, library ms and
+    bound of one sweep from fw."""
+    k_ms = event_ms(lambda: sw(fw), lambda: None, 20)
+    f_ms = event_ms(lambda: sw.sweep_fused(fw, vw), lambda: None, 20)
+    dst = sw.edge_dst()
+    p_ms = event_ms(lambda: pull.touch_reference(
+        sw.offsets, sw.in_src, fw, None, dst), lambda: None, 5)
+    # yardstick only: the in-edge hit counts by one library call, a CSR
+    # SpMV of the CSC with unit values and the frontier indicator;
+    # never used by the port
+    with warnings.catch_warnings():    # sparse CSR is "beta"
+        warnings.simplefilter("ignore")
+        a = torch.sparse_csr_tensor(
+            sw.offsets, sw.in_src,
+            torch.ones(sw.in_src.numel(), dtype=torch.float32,
+                       device=fw.device), size=(sw.n, sw.n))
+    x = unpack_bitmap(fw, sw.n).to(torch.float32)
+    lib = a @ x
+    if not torch.equal(pack_bitmap(lib > 0, sw.n_words), sw(fw)):
+        raise AssertionError("the library SpMV's touched set differs from "
+                             "the kernel's")
+    lib_ms = event_ms(lambda: a @ x, lambda: None, 20)
+    nbytes, ops = touch_work(sw, fw, None)
+    f_bytes, f_ops = touch_work(sw, fw, vw)
+    row = dict(ms=k_ms, fused_ms=f_ms, plain_ms=p_ms, library_ms=lib_ms,
+               bytes=nbytes, ops=ops, bound_ms=bound_ms(nbytes, ops),
+               fused_bound_ms=bound_ms(f_bytes, f_ops),
+               frontier=int(unpack_bitmap(fw, sw.n).sum()))
+    print(f"  s20 sweep from the {row['frontier']} level-2 vertices: "
+          f"kernel {k_ms * 1e3:.1f} us (bound {row['bound_ms'] * 1e3:.2f}"
+          f" us, {nbytes} B), fused {f_ms * 1e3:.1f} us (bound "
+          f"{row['fused_bound_ms'] * 1e3:.2f} us), plain {p_ms * 1e3:.1f}"
+          f" us, library SpMV {lib_ms * 1e3:.1f} us [{card}]", flush=True)
+    return row
+
+
+def sweep_paths(csr20, src, ref_labels, ref_preds, card, counts):
+    """Phase 13: the grid-stepped entry points at rmat-s20 against the
+    oracle, each with the touched sweep's launches in its own window
+    (into `counts`)."""
+    t0 = phase("13 grid-stepped entry points, rmat-s20")
+    pull.launches = 0
+    res = bfs.run(csr20, src, traversal_mode="pallas")
+    counts["bfs.run pallas"] = pull.launches
+    if res.stats.route != "sweep":
+        raise AssertionError(f"route {res.stats.route!r}, expected 'sweep'")
+    if not (np.array_equal(res.labels, ref_labels)
+            and np.array_equal(res.preds, ref_preds)):
+        raise AssertionError("bfs.run pallas labels or preds differ from "
+                             "the oracle")
+    print(f"  bfs.run pallas: exact; depth {res.stats.search_depth}, "
+          f"{res.stats.elapsed_ms:.3f} ms (timed call) [{card}]",
+          flush=True)
+    for cap in (None, 2):
+        pull.launches = 0
+        labels, preds, depth = bfs_pallas.bfs_pallas(csr20, src,
+                                                     max_depth=cap)
+        counts[f"bfs_pallas max_depth={cap}"] = pull.launches
+        want = ref_labels if cap is None else np.where(
+            ref_labels <= cap, ref_labels, INF32)
+        want_preds = np.where(want != INF32, ref_preds, -1)
+        if not (np.array_equal(labels, want)
+                and np.array_equal(preds, want_preds)):
+            raise AssertionError(f"bfs_pallas(max_depth={cap}) labels or "
+                                 "preds differ from the oracle")
+        print(f"  bfs_pallas max_depth={cap}: exact; depth {depth}",
+              flush=True)
+    sw = bfs_pallas.get_pull_sweeper_v2(csr20)
+    fw = start_words(src, sw.rows, sw.device)
+    pull.launches = 0
+    got = sw(fw)
+    counts["get_pull_sweeper_v2"] = pull.launches
+    want = words_from_mask(ref_labels == 1, sw.n_words)
+    if not np.array_equal(got.cpu().numpy(), want):
+        raise AssertionError("the v2 sweeper's touched set from the source "
+                             "differs from the oracle's level 1")
+    print(f"  touch_sweep launches per path: {counts}", flush=True)
+    done(t0)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.perf_counter()
@@ -705,7 +1085,21 @@ def main() -> int:
     # ---- end of the value-plane paths --------------------------------
     print(f"  value_step launches per path: {by_path}", flush=True)
 
-    for name, count in {**launches, **by_path}.items():
+    chain_err, chain_row, csr1024 = chain_phase(csr14, dev, card)
+    # ---- the deep BFS path: its own count window ---------------------
+    chain_counts = {}
+    chain_path(csr1024, dev, card, chain_counts)
+    launches["chain_bfs"] = sum(chain_counts.values())
+    # ---- end of the deep BFS path ------------------------------------
+    touch_err, touch_row = touch_phase(csrs, dev, card)
+    # ---- the grid-stepped paths: one count window per entry point ----
+    touch_counts = {}
+    sweep_paths(csr20, src, ref_labels, ref_preds, card, touch_counts)
+    launches["touch_sweep"] = sum(touch_counts.values())
+    # ---- end of the grid-stepped paths -------------------------------
+
+    for name, count in {**launches, **by_path, **chain_counts,
+                        **touch_counts}.items():
         if count <= 0:
             raise AssertionError(f"kernel or path {name} had no launch on "
                                  "the main path")
@@ -735,6 +1129,33 @@ def main() -> int:
         configs=[{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms",
                                     "library_ms")} for r in value_rows],
         launches_by_path=by_path, ms_by_long_degree=sweep))
+    line.append(dict(
+        name="chain_bfs", **KERNELS["chain_bfs"],
+        launches=launches["chain_bfs"], max_abs_err=chain_err,
+        ms=chain_row["ms"], plain_ms=chain_row["plain_ms"],
+        bound_ms=chain_row["bound_ms"],
+        bound_by=("bytes" if chain_row["bytes"] / HBM_BYTES_PER_S
+                  >= chain_row["ops"] / OPS_PER_S else "operations"),
+        library_ms=None, matches_plain=True,
+        work=f"one whole search of grid-1024^2 from the top-degree vertex "
+             f"({chain_row['depth']} levels)",
+        step_full_ms=chain_row["step_full_ms"],
+        old_route_ms=chain_row["old_route_ms"],
+        grid_blocks=chain_row["grid_blocks"],
+        launches_by_path=chain_counts))
+    line.append(dict(
+        name="touch_sweep", **KERNELS["touch_sweep"],
+        launches=launches["touch_sweep"], max_abs_err=touch_err,
+        ms=touch_row["ms"], plain_ms=touch_row["plain_ms"],
+        bound_ms=touch_row["bound_ms"],
+        bound_by=("bytes" if touch_row["bytes"] / HBM_BYTES_PER_S
+                  >= touch_row["ops"] / OPS_PER_S else "operations"),
+        library_ms=touch_row["library_ms"], matches_plain=True,
+        work=f"one rmat-s20 sweep from the {touch_row['frontier']} "
+             f"level-2 vertices of the top-degree search",
+        fused_ms=touch_row["fused_ms"],
+        fused_bound_ms=touch_row["fused_bound_ms"],
+        launches_by_path=touch_counts))
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(card, flush=True)

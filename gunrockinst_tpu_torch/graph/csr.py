@@ -106,3 +106,21 @@ class CsrGraph:
 
     def average_degree(self) -> float:
         return self.num_edges / max(self.num_nodes, 1)
+
+    # -- binary cache (the reference's csr.cuh:140-246 WriteToFile) --------
+
+    def save(self, path: str) -> None:
+        arrays = dict(row_offsets=self.row_offsets,
+                      col_indices=self.col_indices)
+        if self.edge_values is not None:
+            arrays["edge_values"] = self.edge_values
+        np.savez(path, **arrays)
+
+    @staticmethod
+    def load(path: str) -> "CsrGraph":
+        with np.load(path) as z:
+            return CsrGraph(
+                row_offsets=z["row_offsets"],
+                col_indices=z["col_indices"],
+                edge_values=z["edge_values"] if "edge_values" in z else None,
+            )

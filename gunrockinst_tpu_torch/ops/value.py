@@ -308,7 +308,11 @@ class ValueStepper:
         sweeps ran, with one host read of the changed count per sweep
         and two buffers used in turn (Jacobi rounds).  Returns the final
         values and the number of sweeps, the last, unchanged one
-        included (the reference's `lax.while_loop` count)."""
+        included (the reference's `lax.while_loop` count); 0 when `ch`
+        has no set bit, since the reference tests `any(ch != 0)` before
+        its first sweep."""
+        if not bool(ch.any()):
+            return vals, 0
         spare = torch.empty_like(vals)
         it = 0
         while it < limit:

@@ -21,6 +21,14 @@ def word_rows(n: int) -> int:
     return -(-(n + 1) // REGION) * ROWS_PER_REGION
 
 
+def start_words(v: int, rows: int, device) -> torch.Tensor:
+    """The (rows, 128) word map holding only vertex `v`."""
+    words = torch.zeros((rows, 128), dtype=torch.int32, device=device)
+    bit = np.array([1 << (v & 31)], np.uint32).view(np.int32)
+    words.view(-1)[v >> 5] = int(bit[0])
+    return words
+
+
 def pack_bitmap(mask: torch.Tensor, n_words: int) -> torch.Tensor:
     """(k,) bool -> (n_words/128, 128) int32 packed words (k <= 32*n_words)."""
     if mask.dim() != 1 or mask.shape[0] > n_words * 32:

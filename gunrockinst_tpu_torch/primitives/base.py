@@ -23,8 +23,11 @@ class Stats:
     search_depth: int = 0
     nodes_visited: int = 0
     edges_visited: int = 0
-    # search route: "step8" (8 label planes) or "step_full" (rerun with
-    # bit_length(n+1) planes after the 8-plane cap overflowed)
+    # search route: "step8" (the step kernel with 8 label planes),
+    # "chain" (the whole search again in one launch of the chain kernel
+    # with bit_length(n+1) planes, after the 8-plane pass reached depth
+    # 255 with a frontier left, or at once once a search of the graph
+    # has), or "sweep" (the grid-stepped touched sweeps)
     route: str = ""
 
 

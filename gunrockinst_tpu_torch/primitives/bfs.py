@@ -1,11 +1,13 @@
 """Breadth-first search: the host entry `run`.
 
 Counterpart of the JAX package's `primitives/bfs.py::run` and
-`BfsResult`.  This slice of the port carries the mega route only:
+`BfsResult`.  The port carries the Pallas routes:
 `traversal_mode="mega"`, and `"auto"`, which resolves to it for a host
-`CsrGraph` when no depth cap is asked for.  The XLA-path modes
-("dense", "sparse", "auto" with `max_depth`) and the grid-stepped
-"pallas" mode are not ported yet and raise `NotImplementedError`.
+`CsrGraph` when no depth cap is asked for (the step kernel, and the
+chain kernel for searches deeper than 255 levels); and `"pallas"`, the
+grid-stepped touched sweeps.  The XLA-path modes ("dense", "sparse",
+"auto" with `max_depth`) are not ported yet and raise
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -41,20 +43,24 @@ def run(graph: CsrGraph, src: int, mark_preds: bool = True,
     if (traversal_mode == "auto" and max_depth is None
             and isinstance(graph, CsrGraph)):
         traversal_mode = "mega"
-    if traversal_mode != "mega":
-        item = 9 if traversal_mode == "pallas" else 7
+    if traversal_mode not in ("mega", "pallas"):
         raise NotImplementedError(
             f"traversal_mode={traversal_mode!r}"
             f"{'' if max_depth is None else ' with max_depth'} is not "
-            f"ported yet: ROADMAP.md queue 1, item {item}")
+            f"ported yet: ROADMAP.md queue 1, item 6")
     if not isinstance(graph, CsrGraph):
-        raise TypeError("traversal_mode='mega' needs a host CsrGraph")
-    # warm-up: the first call builds and loads the kernel
-    bfs_pallas.bfs_pallas_fused(graph, src, mark_preds=False, device=dev)
+        raise TypeError(f"traversal_mode={traversal_mode!r} needs a host "
+                        "CsrGraph")
+    # "mega": step kernel, chain kernel for deep searches; "pallas":
+    # grid-stepped touched sweeps
+    variant = "mega" if traversal_mode == "mega" else "fused"
+    # warm-up: the first call builds and loads the kernels
+    bfs_pallas.bfs_pallas_fused(graph, src, mark_preds=False,
+                                variant=variant, device=dev)
     # timed: device traversal only (reference times Enact(); Extract
     # runs outside the GpuTimer, tests/bfs/test_bfs.cu:402-431)
     labels_np, preds_np, _, device_ms = bfs_pallas.bfs_pallas_fused(
-        graph, src, mark_preds=mark_preds, device=dev)
+        graph, src, mark_preds=mark_preds, variant=variant, device=dev)
     visited = labels_np != INF32
     deg = np.diff(graph.row_offsets)
     stats = Stats(
@@ -63,6 +69,7 @@ def run(graph: CsrGraph, src: int, mark_preds: bool = True,
                       if visited.any() else 0),
         nodes_visited=int(visited.sum()),
         edges_visited=int(deg[visited].sum()),
-        route=bfs_pallas.get_fused_bfs(graph, dev).route,
+        route=bfs_pallas.get_fused_bfs(graph, variant == "mega",
+                                       dev).route,
     )
     return BfsResult(labels=labels_np, preds=preds_np, stats=stats)

@@ -107,7 +107,7 @@ def run(graph: CsrGraph, mode: str = "xla",
     dev = resolve_device(device)
     if mode != "planes":
         raise NotImplementedError(
-            f"mode={mode!r} is not ported yet: ROADMAP.md queue 1, item 7")
+            f"mode={mode!r} is not ported yet: ROADMAP.md queue 1, item 6")
     if not isinstance(graph, CsrGraph):
         raise TypeError("mode='planes' needs a host CsrGraph")
     fn = get_cc_planes(graph, dev)

@@ -120,7 +120,7 @@ def run(graph: CsrGraph, delta: float = 0.85, threshold: float = 0.01,
     `device="cpu"` runs the kernel's plain version."""
     dev = resolve_device(device)
     if mode != "planes":
-        item = 9 if mode == "pallas" else 7
+        item = 8 if mode == "pallas" else 6
         raise NotImplementedError(
             f"mode={mode!r} is not ported yet: ROADMAP.md queue 1, "
             f"item {item}")

@@ -122,7 +122,7 @@ def run(graph: CsrGraph, src: int, delta: Optional[float] = None,
     dev = resolve_device(device)
     if mode != "planes":
         raise NotImplementedError(
-            f"mode={mode!r} is not ported yet: ROADMAP.md queue 1, item 7")
+            f"mode={mode!r} is not ported yet: ROADMAP.md queue 1, item 6")
     if not isinstance(graph, CsrGraph):
         raise TypeError("mode='planes' needs a host CsrGraph")
     if not 0 <= int(src) < graph.num_nodes:

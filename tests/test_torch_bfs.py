@@ -88,6 +88,25 @@ def test_multi_visited_sets_match_reference(monkeypatch):
         fn(np.array([5, 40000, port.num_nodes], np.int32))
 
 
+def test_multi_planes_argument_matches_reference():
+    """`planes` sets the label planes of each multi-search; the visited
+    sets and depths do not depend on it, and equal the JAX package's
+    with the same planes."""
+    ref = ref_rmat(10, 4, undirected=True, seed=31)
+    port = _port_of(ref)
+    srcs = np.array([0, 700], np.int32)
+    deps4, vws4, _ = bfs_pallas.get_fused_bfs_multi(
+        port, reps=2, planes=4, device="cpu")(srcs)
+    deps8, vws8, _ = bfs_pallas.get_fused_bfs_multi(
+        port, reps=2, device="cpu")(srcs)
+    rdeps, rvws, _ = ref_bfs_pallas.get_fused_bfs_multi(
+        ref, reps=2, planes=4)(srcs)
+    np.testing.assert_array_equal(deps4, np.asarray(rdeps))
+    np.testing.assert_array_equal(vws4, np.asarray(rvws))
+    np.testing.assert_array_equal(deps4, deps8)
+    np.testing.assert_array_equal(vws4, vws8)
+
+
 def test_two_components_and_isolated_source():
     u = np.array([0, 1, 3], dtype=np.int64)
     v = np.array([1, 2, 4], dtype=np.int64)
@@ -100,17 +119,18 @@ def test_two_components_and_isolated_source():
         np.testing.assert_array_equal(got.preds, preds)
 
 
-def test_deep_path_takes_full_planes_route():
-    """Depth > 255 overflows the 8 label planes: the search reruns with
-    bit_length(n+1) planes through the same step kernel, and the depth
-    counts the last, empty level, as the reference's searches do."""
+def test_deep_path_takes_chain_route():
+    """Depth > 255 overflows the 8 label planes: the search runs again,
+    whole, on the chain kernel with bit_length(n+1) planes, later
+    searches go there directly, and the depth counts the last, empty
+    level, as the reference's searches do."""
     n = 600
     u = np.arange(n - 1, dtype=np.int64)
     port = CsrGraph.from_coo(CooGraph(
         n, np.concatenate([u, u + 1]), np.concatenate([u + 1, u]), None))
     fn = bfs_pallas.get_fused_bfs(port, device="cpu")
     labels, depth, _ = fn(0)
-    assert fn.route == "step_full"
+    assert fn.route == "chain"
     np.testing.assert_array_equal(labels, bfs_reference(port, 0)[0])
     assert depth == n
     labels2, preds, depth2, _ = bfs_pallas.bfs_pallas_fused(
@@ -118,7 +138,7 @@ def test_deep_path_takes_full_planes_route():
     want_labels, want_preds = bfs_reference(port, n - 1)
     np.testing.assert_array_equal(labels2, want_labels)
     np.testing.assert_array_equal(preds, want_preds)
-    assert depth2 == n and fn.route == "step_full"
+    assert depth2 == n and fn.route == "chain"
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
@@ -139,10 +159,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 def test_unported_modes_raise():
     port = CsrGraph.from_arrays(np.array([0, 1, 1]), np.array([1]))
-    for mode in ("dense", "sparse", "pallas"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for mode in ("dense", "sparse"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md queue 1, item 6"):
             bfs.run(port, 0, traversal_mode=mode, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1, item 6"):
         bfs.run(port, 0, traversal_mode="auto", max_depth=3, device="cpu")
     with pytest.raises(ValueError):
         bfs.run(port, 2, device="cpu")

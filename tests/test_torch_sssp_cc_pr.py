@@ -86,6 +86,22 @@ def test_cc_matches_reference(monkeypatch, relabel, name):
     np.testing.assert_array_equal(got.component_ids, cc_reference(port))
 
 
+@pytest.mark.parametrize("n", [0, 3])
+def test_cc_edgeless_graphs_match_reference(n):
+    """No vertex, or three with no edge: the round count tests the
+    changed map before the first sweep, as the reference's loop does
+    (0 rounds for 0 vertices, 1 for 3)."""
+    none = np.zeros(0, np.int64)
+    ref = RefCsr.from_coo(RefCoo(n, none, none, None))
+    port = CsrGraph.from_arrays(ref.row_offsets, ref.col_indices)
+    got = cc.run(port, mode="planes", device="cpu")
+    want = ref_cc.run(ref, mode="planes")
+    assert got.stats.search_depth == want.stats.search_depth == min(n, 1)
+    np.testing.assert_array_equal(got.component_ids, want.component_ids)
+    np.testing.assert_array_equal(got.component_ids, np.arange(n))
+    assert got.num_components == want.num_components == n
+
+
 @pytest.mark.parametrize("relabel", RELABEL)
 @pytest.mark.parametrize("name,src", [("rmat10", -1),
                                       ("random200_directed", 3)])

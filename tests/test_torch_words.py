@@ -11,8 +11,8 @@ from gunrockinst_tpu.ops.pallas_advance import unpack_bitmap as ref_unpack
 from gunrockinst_tpu.ops.pallas_advance_v3 import build_pull_plan_v3
 
 from gunrockinst_tpu_torch.ops.words import (host_unpack_words,
-                                             pack_bitmap, unpack_bitmap,
-                                             word_rows)
+                                             pack_bitmap, start_words,
+                                             unpack_bitmap, word_rows)
 
 
 @pytest.mark.parametrize("n,density,seed", [
@@ -51,3 +51,14 @@ def test_word_rows_at_bench_scale():
 def test_pack_rejects_overflow():
     with pytest.raises(ValueError):
         pack_bitmap(torch.ones(32 * 128 + 1, dtype=torch.bool), 128)
+
+
+@pytest.mark.parametrize("v", [0, 31, 32, 40000, 65535])
+def test_start_words_match_reference_pack(v):
+    """The one-vertex map the searches start from, bit 31 included,
+    equals the reference's pack of a one-hot mask."""
+    rows = word_rows(65536)
+    mask = np.zeros(rows * 128 * 32, bool)
+    mask[v] = True
+    want = np.asarray(ref_pack(jnp.asarray(mask), rows * 128))
+    np.testing.assert_array_equal(start_words(v, rows, "cpu").numpy(), want)
