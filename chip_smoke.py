@@ -6,9 +6,10 @@
 Phases, each of which raises on failure:
 
   1. device  - the card's name and power limit (nvidia-smi);
-  2. build   - compile the four kernels (mega_step, value_step,
-               chain_bfs, touch_sweep) from gunrockinst_tpu_torch/csrc/
-               (one nvcc per source, all started together, into
+  2. build   - compile the four kernel sources (mega_step, value_step,
+               chain_bfs, touch_sweep; the spmv wrapper launches
+               value_step's) from gunrockinst_tpu_torch/csrc/ (one nvcc
+               per source, all started together, into
                gunrockinst_tpu_torch/_build/);
   3. kernel  - at rmat-s14 and rmat-s20 (ef16, undirected, seed 42), for
                every level of one search from the top-degree vertex and
@@ -24,11 +25,12 @@ Phases, each of which raises on failure:
                equals the oracle's; ms per search and GTEPS.
 
   6. value   - at rmat-s14 and rmat-s20, one sweep of the value kernel
-               in each of its four configurations (sssp_w, sssp_c, cc,
-               pr) on seeded inputs equals its plain PyTorch version:
-               the min configurations bit for bit, changed map and count
-               included; pr allclose (rtol 1e-5, atol 1e-6) and bitwise
-               equal between two kernel runs.  At s20 each configuration
+               in each of its five configurations (sssp_w, sssp_c, cc,
+               pr, bc_fwd) on seeded inputs equals its plain PyTorch
+               version: the min configurations bit for bit, changed map
+               and count included; the add configurations (pr ungated,
+               bc_fwd gated on half the sources) allclose (rtol 1e-5,
+               atol 1e-6) and bitwise equal between two kernel runs.  At s20 each configuration
                is timed (CUDA events, median of repeats) for the kernel
                and the plain version, beside its bound; for pr also one
                library call for the same sums, a CSR SpMV.  Then, at
@@ -75,14 +77,41 @@ Phases, each of which raises on failure:
                and preds (cut at depth 2), and get_pull_sweeper_v2's
                sweep from the source gives the oracle's level 1.
 
+Phases 14-18 run on the undirected rmat-s20 above and on the directed
+rmat-s20 ef16, seed 42, whose reverse CSC is a second upload:
+
+ 14. spmv    - the pull-SpMV (ops/spmv.py, the value kernel's ungated
+               add sweep over the unrelabeled CSC) on a seeded contrib
+               is allclose (rtol 1e-5, atol 1e-6) to its plain version,
+               two kernel calls bitwise equal; timed on the undirected
+               graph beside its bound, the plain version and one library
+               call for the same sums, a CSR SpMV;
+ 15. pr pallas - pr.run(csr, max_iter=5, mode="pallas") on the
+               undirected graph, twice: allclose (rtol 1e-4, atol 1e-6)
+               to the NumPy oracle and to phase 9's planes ranks, the
+               two calls bitwise equal;
+ 16. hits, salsa - hits.run(src=top-degree, max_iter=10) and
+               salsa.run(max_iter=10), mode="planes", allclose (rtol
+               1e-4, atol 1e-6) to the NumPy oracles;
+ 17. wtf     - wtf.run(src=top-degree, cot_size=1000, mode="planes"):
+               PPR allclose (rtol 1e-3, atol 1e-6) to the oracle's, the
+               circle of trust score-equivalent per position, the ranks
+               allclose to the oracle pinned to the port's circle;
+ 18. bc      - bc.run(src=top-degree, mode="planes"): labels equal
+               bc_reference_fast's, values allclose (rtol 1e-4, atol
+               1e-6), sigma equal below 2^24 and allclose (rtol 1e-6)
+               above, two calls bitwise equal.
+
 Launch counts of the BFS kernel are zeroed just before phase 4 and read
 just after phase 5; those of the value kernel are zeroed just before
 and read just after each entry-point call of phases 7-9 (sssp, sssp
 weighted, cc, pr), so the replay and the rmat-s14 check do not count;
-the chain kernel's around phase 11's bfs.run, and the touched sweep's
-around each entry-point call of phase 13.  Phases 3, 6, 10 and 12,
-which hold kernels against their plain versions and time them, count
-for no path.  A path with no launch in its window fails the run.  The
+the chain kernel's around phase 11's bfs.run, the touched sweep's
+around each entry-point call of phase 13, the pull-SpMV's around phase
+15's pr.run calls, and the value kernel's again around each
+entry-point call of phases 16-18.  Phases 3, 6, 10, 12 and 14, which
+hold kernels against their plain versions and time them, count for no
+path.  A path with no launch in its window fails the run.  The
 last lines are the kernels line, the nvidia-smi line and {"ok": true,
 ...}.  Without CUDA the script exits nonzero and prints no result; a
 watchdog ends a hung run with a traceback and a nonzero exit.
@@ -109,7 +138,9 @@ written once; operations: three per out-edge read.  A touched sweep's
 bound counts, as a level's does, one offset per candidate vertex (every
 vertex; the unvisited ones for the fused form), the in-edge ids read up
 to the first frontier hit and the frontier words they point to, and the
-output written (and vw read) whole.
+output written (and vw read) whole.  The pull-SpMV's bound counts the
+CSC offsets and in-edge ids read whole, contrib read and the sums
+written once; operations: one add per in-edge.
 
 Phases 5 and 7 also replay their searches (levels, rounds) with no host
 sync in between, queued behind a device sleep, so that CUDA events time
@@ -125,6 +156,7 @@ import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -135,14 +167,17 @@ from gunrockinst_tpu_torch.graph.csr import CsrGraph
 from gunrockinst_tpu_torch.graph.lattice import grid_graph
 from gunrockinst_tpu_torch.graph.relabel import is_symmetric
 from gunrockinst_tpu_torch.graph.rmat import rmat_graph
-from gunrockinst_tpu_torch.ops import _build, chain, mega, pull, value
+from gunrockinst_tpu_torch.ops import _build, chain, mega, pull, spmv, value
 from gunrockinst_tpu_torch.ops.words import (mask_from_words, pack_bitmap,
                                              start_words, unpack_bitmap,
                                              words_from_mask)
-from gunrockinst_tpu_torch.oracles import (bfs_reference,
+from gunrockinst_tpu_torch.oracles import (bc_reference_fast,
+                                           bfs_reference, hits_reference,
                                            pagerank_reference,
-                                           sssp_reference)
-from gunrockinst_tpu_torch.primitives import bfs, bfs_pallas, cc, pr, sssp
+                                           salsa_reference, sssp_reference,
+                                           wtf_reference)
+from gunrockinst_tpu_torch.primitives import (bc, bfs, bfs_pallas, cc, hits,
+                                              pr, salsa, sssp, wtf)
 
 WATCHDOG_S = 1100          # under the 1200 s limit of a smoke run
 HBM_BYTES_PER_S = 3.35e12
@@ -167,6 +202,11 @@ KERNELS = {   # every kernel of the BFS and value-plane paths
                        "gunrockinst_tpu/ops/pallas_advance_v2.py:317",
                        "gunrockinst_tpu/ops/pallas_advance.py:144",
                        "gunrockinst_tpu/ops/pallas_advance.py:191"]),
+    # the value kernel's ungated add sweep over the unrelabeled CSC (K7)
+    "spmv": dict(
+        route="cuda", source="gunrockinst_tpu_torch/csrc/value_step.cu",
+        replaces="gunrockinst_tpu/ops/pallas_spmv.py:273",
+        also_replaces=["gunrockinst_tpu/ops/pallas_spmv.py:296"]),
 }
 CHAIN_PATH = 600       # phase 10's first graph: a path, depth 600
 # the value kernel's configurations on the path (ops/value.py keywords)
@@ -175,9 +215,12 @@ VALUE_CONFIGS = {
     "sssp_c": dict(mode="min", f32=True, const_w=1.0),
     "cc": dict(mode="min", f32=False),
     "pr": dict(mode="add", f32=True, use_active=False),
+    "bc_fwd": dict(mode="add", f32=True, use_active=True),   # BC's sweeps
 }
 LONG_DEGREES = (32, 64, 128, 256, 512)   # phase 6's threshold sweep, s20
 PR_ITERS = 5
+RANK_ITERS = 10        # phase 16: HITS and SALSA iterations
+COT_SIZE = 1000        # phase 17
 INF32 = np.iinfo(np.int32).max
 
 
@@ -199,11 +242,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def graph(scale):
+def graph(scale, undirected=True):
     t0 = time.perf_counter()
-    csr = rmat_graph(scale, 16, undirected=True, seed=SEED)
-    print(f"  rmat-s{scale} ef16: {csr.num_nodes} vertices, "
-          f"{csr.num_edges} directed edges "
+    csr = rmat_graph(scale, 16, undirected=undirected, seed=SEED)
+    print(f"  rmat-s{scale} ef16 {'un' if undirected else ''}directed: "
+          f"{csr.num_nodes} vertices, {csr.num_edges} directed edges "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     return csr
 
@@ -373,8 +416,9 @@ def time_levels(g, levels, reach):
 def value_case(g, name, rng):
     """(stepper, vals, ch) of one configuration on g's device CSC, with
     seeded inputs: f32 values in [0, 100) with 30% inf, or i32 labels
-    in [0, n), or f32 contributions in [0, 1); half the ch bits set
-    (all of them for pr); integer weights 1..63 for sssp_w."""
+    in [0, n), or f32 contributions in [0, 1) (pr, bc_fwd); half the
+    ch bits set (all of them for pr); integer weights 1..63 for
+    sssp_w."""
     st = g.stepper
     n_pad, m = g.n_words * 32, st.in_src.numel()
     kw = dict(VALUE_CONFIGS[name])
@@ -384,7 +428,7 @@ def value_case(g, name, rng):
     stepper = value.ValueStepper(st.offsets, st.in_src, **kw)
     if name == "cc":
         vals = rng.integers(0, g.n, n_pad).astype(np.int32)
-    elif name == "pr":
+    elif name in ("pr", "bc_fwd"):
         vals = rng.random(n_pad, dtype=np.float32).view(np.int32)
     else:
         f = (rng.random(n_pad, dtype=np.float32) * 100).astype(np.float32)
@@ -637,7 +681,8 @@ def cc_phase(csr20, card, counts):
 
 
 def pr_phase(csr20, card, counts):
-    """Phase 9: PR at rmat-s20, twice, against the NumPy oracle."""
+    """Phase 9: PR at rmat-s20, twice, against the NumPy oracle.
+    Returns (the ranks, the oracle's)."""
     t0 = phase(f"9 pr.run planes max_iter={PR_ITERS}, rmat-s20")
     value.launches = 0
     res = pr.run(csr20, max_iter=PR_ITERS, mode="planes")
@@ -660,6 +705,7 @@ def pr_phase(csr20, card, counts):
           f"{float(np.abs(res.ranks - ref).max()):.3g}); two calls "
           f"bitwise equal", flush=True)
     done(t0)
+    return res.ranks, ref
 
 
 def lattice(side):
@@ -978,6 +1024,198 @@ def sweep_paths(csr20, src, ref_labels, ref_preds, card, counts):
     done(t0)
 
 
+def spmv_work(sw):
+    """(bytes, operations) one pull-SpMV needs: the CSC offsets and
+    in-edge ids read whole, contrib read and the sums written once; one
+    add per in-edge."""
+    m = sw.in_src.numel()
+    return 4 * ((sw.n + 1) + m + 2 * sw.n_pad), m
+
+
+def spmv_phase(graphs, dev, card):
+    """Phase 14: the pull-SpMV against its plain version on both s20
+    graphs; timed on the undirected one beside its bound, the plain
+    version and a library SpMV.  Returns (largest |kernel - plain|, the
+    timing row)."""
+    t0 = phase("14 pull-SpMV vs plain version, rmat-s20")
+    max_err, row = 0.0, None
+    for kind, csr in graphs.items():
+        sw = pr.get_spmv_sweeper(csr, dev)
+        c = np.zeros(sw.n_pad, np.float32)
+        c[: sw.n] = np.random.default_rng(SEED).random(sw.n,
+                                                       dtype=np.float32)
+        contrib = torch.from_numpy(c).to(dev)
+        got = sw(contrib)
+        torch.cuda.synchronize()
+        want = sw.reference(contrib)
+        err = float((got.double() - want.double()).abs().max())
+        max_err = max(max_err, err)
+        if not torch.allclose(got, want, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"{kind}: pull-SpMV sums differ from the "
+                                 f"plain version beyond rtol 1e-5, atol "
+                                 f"1e-6 (max |diff| {err})")
+        if not torch.equal(sw(contrib).view(torch.int32),
+                           got.view(torch.int32)):
+            raise AssertionError(f"{kind}: two pull-SpMV runs differ")
+        print(f"  {kind}: equal to the plain version (allclose rtol 1e-5 "
+              f"atol 1e-6, two runs bitwise; max |diff| {err:.3g})",
+              flush=True)
+        if kind == "undirected":
+            row = time_spmv(sw, contrib, got, card)
+    done(t0)
+    return max_err, row
+
+
+def time_spmv(sw, contrib, got, card):
+    """Kernel, plain and library ms of one pull-SpMV, and its bound."""
+    out = torch.empty_like(contrib)
+    k_ms = event_ms(lambda: sw(contrib, out=out), lambda: None, 20)
+    p_ms = event_ms(lambda: sw.reference(contrib), lambda: None, 5)
+    # yardstick only: the same sums by one library call, a CSR SpMV of
+    # the CSC with unit values; never used by the port
+    with warnings.catch_warnings():    # sparse CSR is "beta"
+        warnings.simplefilter("ignore")
+        a = torch.sparse_csr_tensor(
+            sw.offsets, sw.in_src,
+            torch.ones(sw.in_src.numel(), dtype=torch.float32,
+                       device=contrib.device), size=(sw.n, sw.n))
+    x = contrib[: sw.n].clone()
+    err = float((a @ x - got[: sw.n]).abs().max())
+    lib_ms = event_ms(lambda: a @ x, lambda: None, 20)
+    nbytes, ops = spmv_work(sw)
+    row = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bytes=nbytes,
+               ops=ops, bound_ms=bound_ms(nbytes, ops))
+    print(f"  undirected: kernel {k_ms * 1e3:.1f} us, plain "
+          f"{p_ms * 1e3:.1f} us, library SpMV {lib_ms * 1e3:.1f} us (max "
+          f"|diff| to the kernel {err:.3g}), bound "
+          f"{row['bound_ms'] * 1e3:.2f} us ({nbytes} B) [{card}]",
+          flush=True)
+    return row
+
+
+def pr_pallas_phase(csr20, planes_ranks, ref, card, counts):
+    """Phase 15: pr.run(mode="pallas") at rmat-s20, twice, against the
+    NumPy oracle and phase 9's planes ranks; the pull-SpMV's launches of
+    the two calls go into `counts`."""
+    t0 = phase(f"15 pr.run pallas max_iter={PR_ITERS}, rmat-s20")
+    spmv.launches = 0
+    res = pr.run(csr20, max_iter=PR_ITERS, mode="pallas")
+    again = pr.run(csr20, max_iter=PR_ITERS, mode="pallas")
+    counts["pr pallas"] = spmv.launches
+    if not np.array_equal(res.ranks.view(np.int32),
+                          again.ranks.view(np.int32)):
+        raise AssertionError("two pr.run pallas calls give different ranks")
+    for what, want in (("the oracle", ref), ("the planes ranks",
+                                              planes_ranks)):
+        if not np.allclose(res.ranks, want, rtol=1e-4, atol=1e-6):
+            raise AssertionError(f"pr pallas ranks differ from {what} "
+                                 "beyond rtol 1e-4, atol 1e-6")
+    it, m = res.stats.search_depth, csr20.num_edges
+    for r in (res, again):
+        ms = r.stats.elapsed_ms
+        print(f"  {it} iterations, {ms:.3f} ms, "
+              f"{m * it / (ms * 1e6):.4f} G edge-updates/s [{card}]",
+              flush=True)
+    done(t0, f"allclose to the oracle and the planes ranks; two calls "
+             f"bitwise equal; {spmv.launches} SpMV launches")
+
+
+def close(what, got, want, rtol, atol=1e-6):
+    if not np.allclose(got, want, rtol=rtol, atol=atol):
+        err = float(np.abs(got.astype(np.float64) - want).max())
+        raise AssertionError(f"{what} differ from the oracle beyond rtol "
+                             f"{rtol}, atol {atol} (max |diff| {err:.3g})")
+
+
+def hits_salsa_phase(graphs, card, counts):
+    """Phase 16: HITS and SALSA planes on both s20 graphs against the
+    NumPy oracles, each call with the value kernel's launches in its
+    own window (into `counts`)."""
+    t0 = phase(f"16 hits.run and salsa.run planes max_iter={RANK_ITERS}, "
+               f"rmat-s20")
+    for kind, csr in graphs.items():
+        src = sources(csr)[0]
+        value.launches = 0
+        res = hits.run(csr, src=src, max_iter=RANK_ITERS, mode="planes")
+        counts[f"hits {kind}"] = value.launches
+        hub, auth = hits_reference(csr, src, max_iter=RANK_ITERS)
+        close(f"{kind} hits hub ranks", res.hub_ranks, hub, 1e-4)
+        close(f"{kind} hits auth ranks", res.auth_ranks, auth, 1e-4)
+        print(f"  {kind} hits from {src}: allclose; "
+              f"{res.stats.elapsed_ms:.3f} ms [{card}]", flush=True)
+        value.launches = 0
+        res = salsa.run(csr, max_iter=RANK_ITERS, mode="planes")
+        counts[f"salsa {kind}"] = value.launches
+        hub, auth = salsa_reference(csr, max_iter=RANK_ITERS)
+        close(f"{kind} salsa hub ranks", res.hub_ranks, hub, 1e-4)
+        close(f"{kind} salsa auth ranks", res.auth_ranks, auth, 1e-4)
+        print(f"  {kind} salsa: allclose; {res.stats.elapsed_ms:.3f} ms "
+              f"[{card}]", flush=True)
+    done(t0)
+
+
+def wtf_phase(graphs, card, counts):
+    """Phase 17: WTF planes on both s20 graphs, checked as the JAX
+    package's tests check it: PPR allclose, the circle of trust
+    score-equivalent per position, the ranks allclose to the oracle
+    pinned to the port's circle."""
+    t0 = phase(f"17 wtf.run planes cot_size={COT_SIZE}, rmat-s20")
+    for kind, csr in graphs.items():
+        src = sources(csr)[0]
+        value.launches = 0
+        res = wtf.run(csr, src=src, cot_size=COT_SIZE, mode="planes")
+        counts[f"wtf {kind}"] = value.launches
+        pinned, _, ppr = wtf_reference(csr, src, cot_size=COT_SIZE,
+                                       cot=res.cot)
+        cot = np.lexsort((np.arange(csr.num_nodes), -ppr))[:COT_SIZE]
+        close(f"{kind} wtf ppr ranks", res.ppr_ranks, ppr, 1e-3)
+        close(f"{kind} wtf circle-of-trust scores", ppr[res.cot], ppr[cot],
+              1e-3)
+        close(f"{kind} wtf ranks", res.wtf_ranks, pinned, 1e-3)
+        phases = ", ".join(f"{k} {v:.3f}" if isinstance(v, float)
+                           else f"{k} {v}" for k, v in res.phases.items())
+        print(f"  {kind} wtf from {src}: allclose; "
+              f"{res.stats.elapsed_ms:.3f} ms ({phases}) [{card}]",
+              flush=True)
+    done(t0)
+
+
+def bc_phase(graphs, card, counts):
+    """Phase 18: single-source BC planes on both s20 graphs, twice,
+    against bc_reference_fast."""
+    t0 = phase("18 bc.run planes, rmat-s20")
+    for kind, csr in graphs.items():
+        src = sources(csr)[0]
+        value.launches = 0
+        res = bc.run(csr, src=src, mode="planes")
+        again = bc.run(csr, src=src, mode="planes")
+        counts[f"bc {kind}"] = value.launches
+        for what, a, b in (("values", res.bc_values, again.bc_values),
+                           ("sigmas", res.sigmas, again.sigmas),
+                           ("labels", res.labels, again.labels)):
+            if not np.array_equal(a.view(np.int32), b.view(np.int32)):
+                raise AssertionError(f"{kind}: two bc.run calls give "
+                                     f"different {what}")
+        want_bc, want_sigma, want_labels = bc_reference_fast(csr, src)
+        if not np.array_equal(np.where(res.labels == INF32, -1,
+                                       res.labels), want_labels):
+            raise AssertionError(f"{kind}: bc labels differ from the "
+                                 "oracle's")
+        close(f"{kind} bc values", res.bc_values, want_bc, 1e-4)
+        exact = want_sigma < 2**24
+        if not np.array_equal(res.sigmas[exact], want_sigma[exact]):
+            raise AssertionError(f"{kind}: bc sigmas below 2^24 differ "
+                                 "from the oracle's")
+        close(f"{kind} bc sigmas above 2^24", res.sigmas[~exact],
+              want_sigma[~exact], 1e-6, 0.0)
+        print(f"  {kind} bc from {src}: labels exact, values allclose, "
+              f"sigmas exact below 2^24 ({int((~exact).sum())} above); "
+              f"depth {res.stats.search_depth}, "
+              f"{res.stats.elapsed_ms:.3f} ms, {again.stats.elapsed_ms:.3f}"
+              f" ms; two calls bitwise equal [{card}]", flush=True)
+    done(t0)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.perf_counter()
@@ -995,7 +1233,8 @@ def main() -> int:
     done(t0)
 
     t0 = phase("2 build")
-    reports = _build.build(KERNELS)
+    reports = _build.build(sorted({Path(k["source"]).stem
+                                   for k in KERNELS.values()}))
     for name, report in reports.items():
         print(f"  {name}: {report.strip() or 'cached'}", flush=True)
     done(t0, "built")
@@ -1080,10 +1319,8 @@ def main() -> int:
     by_path = {}
     sssp_phase(csr20, csr14, dev, card, by_path)
     cc_phase(csr20, card, by_path)
-    pr_phase(csr20, card, by_path)
-    launches["value_step"] = sum(by_path.values())
-    # ---- end of the value-plane paths --------------------------------
-    print(f"  value_step launches per path: {by_path}", flush=True)
+    planes_ranks, pr_ref = pr_phase(csr20, card, by_path)
+    # ---- end of the value-plane paths (more in phases 16-18) ---------
 
     chain_err, chain_row, csr1024 = chain_phase(csr14, dev, card)
     # ---- the deep BFS path: its own count window ---------------------
@@ -1098,8 +1335,23 @@ def main() -> int:
     launches["touch_sweep"] = sum(touch_counts.values())
     # ---- end of the grid-stepped paths -------------------------------
 
+    graphs = {"undirected": csr20, "directed": graph(20, undirected=False)}
+    spmv_err, spmv_row = spmv_phase(graphs, dev, card)
+    # ---- the pull-SpMV path: its own count window --------------------
+    spmv_counts = {}
+    pr_pallas_phase(csr20, planes_ranks, pr_ref, card, spmv_counts)
+    launches["spmv"] = sum(spmv_counts.values())
+    # ---- end of the pull-SpMV path -----------------------------------
+    # ---- the link-analysis paths: one value count window per call ----
+    hits_salsa_phase(graphs, card, by_path)
+    wtf_phase(graphs, card, by_path)
+    bc_phase(graphs, card, by_path)
+    launches["value_step"] = sum(by_path.values())
+    # ---- end of the link-analysis paths ------------------------------
+    print(f"  value_step launches per path: {by_path}", flush=True)
+
     for name, count in {**launches, **by_path, **chain_counts,
-                        **touch_counts}.items():
+                        **touch_counts, **spmv_counts}.items():
         if count <= 0:
             raise AssertionError(f"kernel or path {name} had no launch on "
                                  "the main path")
@@ -1156,6 +1408,17 @@ def main() -> int:
         fused_ms=touch_row["fused_ms"],
         fused_bound_ms=touch_row["fused_bound_ms"],
         launches_by_path=touch_counts))
+    line.append(dict(
+        name="spmv", **KERNELS["spmv"],
+        launches=launches["spmv"], max_abs_err=spmv_err,
+        ms=spmv_row["ms"], plain_ms=spmv_row["plain_ms"],
+        bound_ms=spmv_row["bound_ms"],
+        bound_by=("bytes" if spmv_row["bytes"] / HBM_BYTES_PER_S
+                  >= spmv_row["ops"] / OPS_PER_S else "operations"),
+        library_ms=spmv_row["library_ms"], matches_plain=True,
+        work="one sweep of a seeded contrib over the unrelabeled CSC of "
+             "rmat-s20 undirected",
+        launches_by_path=spmv_counts))
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(card, flush=True)

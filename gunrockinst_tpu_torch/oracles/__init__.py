@@ -5,4 +5,8 @@ from gunrockinst_tpu_torch.oracles.traversal import (  # noqa: F401
 from gunrockinst_tpu_torch.oracles.components import (  # noqa: F401
     canonicalize_components, cc_reference)
 from gunrockinst_tpu_torch.oracles.ranking import (  # noqa: F401
-    pagerank_reference, remove_dangling_degrees)
+    hits_reference, pagerank_reference, remove_dangling_degrees,
+    salsa_reference)
+from gunrockinst_tpu_torch.oracles.wtf import wtf_reference  # noqa: F401
+from gunrockinst_tpu_torch.oracles.centrality import (  # noqa: F401
+    bc_reference, bc_reference_fast)

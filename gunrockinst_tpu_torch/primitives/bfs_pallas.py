@@ -39,10 +39,12 @@ import torch
 
 from gunrockinst_tpu_torch.device import DeviceLike, resolve_device
 from gunrockinst_tpu_torch.graph.csr import CsrGraph
-from gunrockinst_tpu_torch.graph.relabel import reach_words_for, relabeled
+from gunrockinst_tpu_torch.graph.relabel import (is_symmetric,
+                                                 reach_words_for, relabeled)
 from gunrockinst_tpu_torch.ops.chain import ChainBfs
 from gunrockinst_tpu_torch.ops.mega import MegaStepper
 from gunrockinst_tpu_torch.ops.pull import PullSweeper
+from gunrockinst_tpu_torch.ops.value import ValueStepper
 from gunrockinst_tpu_torch.ops.words import (host_unpack_words, start_words,
                                              unpack_bitmap)
 from gunrockinst_tpu_torch.primitives.base import INF32, Timer, sync
@@ -54,8 +56,9 @@ class SearchGraph:
     """The relabeled graph of one CsrGraph on one device: its CSC on the
     host (`csc`, with the edge values in CSC order) and on the device
     (the stepper's `offsets` and `in_src`, which the value sweeps of
-    primitives/sssp.py, cc.py and pr.py share), and the per-source
-    reach masks."""
+    the planes primitives share), the CSC of the reverse graph
+    (`reverse`, for the sweeps into sources), and the per-source reach
+    masks."""
 
     def __init__(self, csr: CsrGraph, device: torch.device):
         self.n = csr.num_nodes
@@ -67,6 +70,8 @@ class SearchGraph:
         self.rows = self.stepper.rows
         self.n_words = self.stepper.n_words
         self._reach = {}
+        self._reverse = None
+        self._add_steppers = {}
         self._perm = (None if self.perm is None else torch.from_numpy(
             self.perm.astype(np.int64)).to(device))
 
@@ -81,6 +86,12 @@ class SearchGraph:
             out[self._perm] = x
         return out
 
+    def stage(self, v: np.ndarray) -> torch.Tensor:
+        """(n,) host values in input ids -> (32 * n_words,) f32 on the
+        device in search ids, 0 in the padding."""
+        return self.to_internal(torch.from_numpy(
+            np.asarray(v, dtype=np.float32)).to(self.device))
+
     def to_input(self, t: torch.Tensor) -> torch.Tensor:
         """(>= n,) values in search ids -> (n,) values in input ids."""
         t = t[: self.n]
@@ -92,6 +103,25 @@ class SearchGraph:
             raise ValueError(f"source vertex {src} out of range "
                              f"[0, {self.n})")
         return int(src) if self.perm is None else int(self.perm[int(src)])
+
+    def reverse(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(offsets (n+1,), in_src (m,)) int32 on the device: the CSC of
+        the reverse graph in the same internal ids, whose in-edges of u
+        are u's out-edges (counterpart of the reference's
+        `get_reverse_plan`, pallas_value.py:532).  That is the
+        relabeled CSR, uploaded once; a symmetric graph is its own
+        reverse and returns the forward CSC's tensors."""
+        if self._reverse is None:
+            st = self.stepper
+            if is_symmetric(self.csr_p):
+                self._reverse = (st.offsets, st.in_src)
+            else:
+                self._reverse = tuple(
+                    torch.from_numpy(np.ascontiguousarray(
+                        a, dtype=np.int32)).to(self.device)
+                    for a in (self.csr_p.row_offsets,
+                              self.csr_p.col_indices))
+        return self._reverse
 
     def reach(self, psrc: int) -> torch.Tensor:
         hit = self._reach.get(psrc)
@@ -144,6 +174,30 @@ class SearchGraph:
 
 
 _graph_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def add_stepper(g: SearchGraph, reverse: bool = False,
+                gated: bool = False) -> ValueStepper:
+    """The f32 add sweep over g's forward CSC (into destinations) or its
+    reverse CSC (into sources), ungated or gated on the sources' ch
+    bits; one stepper per combination, cached on g, so the sweeps of
+    PR, HITS, SALSA, WTF and BC share it (counterpart of the
+    reference's `get_add_stepper`, pallas_value.py:991)."""
+    key = (bool(reverse), bool(gated))
+    hit = g._add_steppers.get(key)
+    if hit is None:
+        offsets, in_src = (g.reverse() if reverse else
+                           (g.stepper.offsets, g.stepper.in_src))
+        hit = g._add_steppers[key] = ValueStepper(
+            offsets, in_src, mode="add", f32=True, use_active=gated)
+    return hit
+
+
+def add_sweep(st: ValueStepper, x: torch.Tensor,
+              ch: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One sweep of an add stepper over f32 values x (n_pad,): the f32
+    sums per vertex."""
+    return st.sweep(x.view(torch.int32), ch)[0].view(torch.float32)
 
 
 def search_graph(csr: CsrGraph, device: torch.device) -> SearchGraph:

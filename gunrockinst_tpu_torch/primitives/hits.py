@@ -1,0 +1,116 @@
+"""HITS (the reference's v0.2 variant with a personalization term): the
+host entry `run` and the value-plane driver `get_hits_planes`.
+
+Counterpart of the JAX package's `primitives/hits.py`.  Per iteration:
+
+    auth[v] = sum over u->v of hub[u] / max(outdeg(u), 1)
+    hub[u]  = [u==src] * delta * (outdeg(u) > 0)
+              + (1-delta) * sum over u->v of auth[v] / max(indeg(v), 1)
+
+Auth is refreshed first and hub reads the new auth.  The auth sum is
+one ungated f32 add sweep of the value kernel (`ops/value.py`) over the
+forward device CSC (into destinations), the hub sum one over the
+reverse CSC (into sources, `SearchGraph.reverse`); on a symmetric graph
+both are the one CSC that BFS, SSSP, CC and PR sweep.  The
+personalization term factors out of the hub sum exactly: over u's
+out-edges, sum of [u==src] * delta / outdeg(u) is [u==src] * delta when
+u has an out-edge.  Fixed iteration count, host loop.  The XLA
+scatter-add mode is not ported yet and raises `NotImplementedError`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import weakref
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from gunrockinst_tpu_torch.device import DeviceLike, resolve_device
+from gunrockinst_tpu_torch.graph.csr import CsrGraph
+from gunrockinst_tpu_torch.primitives.base import Stats, Timer, sync
+from gunrockinst_tpu_torch.primitives.bfs_pallas import (add_stepper,
+                                                         add_sweep,
+                                                         search_graph)
+
+_planes_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+class _HitsPlanes:
+    """fn(src, delta, max_iter) -> (hub (n,) f32, auth (n,) f32, both in
+    input ids, device_ms)."""
+
+    def __init__(self, csr: CsrGraph, device: torch.device):
+        g = search_graph(csr, device)
+        self.g = g
+        self.fwd = add_stepper(g)                 # auth: into dsts
+        self.rev = add_stepper(g, reverse=True)   # hub: into srcs
+        n = csr.num_nodes
+        outdeg = np.diff(csr.row_offsets).astype(np.int64)
+        indeg = np.bincount(csr.col_indices, minlength=n).astype(np.int64)
+        self.inv_so = g.stage(1.0 / np.maximum(outdeg, 1))
+        self.inv_si = g.stage(1.0 / np.maximum(indeg, 1))
+        self.has_out = g.stage(outdeg > 0)
+
+    def __call__(self, src: int = 0, delta: float = 0.85,
+                 max_iter: int = 50) -> Tuple[np.ndarray, np.ndarray,
+                                              float]:
+        g = self.g
+        p = np.zeros(g.n, np.float32)
+        if 0 <= src < g.n:
+            p[src] = 1.0
+        d = torch.tensor(delta, dtype=torch.float32, device=g.device)
+        pers_term = d * g.stage(p) * self.has_out
+        hub = torch.zeros(g.n_words * 32, dtype=torch.float32,
+                          device=g.device)
+        auth = hub
+        sync(g.device)
+        with Timer() as t:
+            for _ in range(max_iter):
+                auth = add_sweep(self.fwd, hub * self.inv_so)
+                hub = pers_term + (1.0 - d) * add_sweep(
+                    self.rev, auth * self.inv_si)
+            sync(g.device)
+        return (g.to_input(hub).cpu().numpy(),
+                g.to_input(auth).cpu().numpy(), t.elapsed_ms)
+
+
+def get_hits_planes(csr: CsrGraph, device: DeviceLike = None
+                    ) -> _HitsPlanes:
+    """HITS over the value kernel's add sweeps, cached per graph and
+    device: fn(src, delta, max_iter) -> (hub, auth, device_ms)."""
+    dev = resolve_device(device)
+    per_dev = _planes_cache.setdefault(csr, {})
+    hit = per_dev.get(dev)
+    if hit is None:
+        hit = per_dev[dev] = _HitsPlanes(csr, dev)
+    return hit
+
+
+@dataclasses.dataclass
+class HitsResult:
+    hub_ranks: np.ndarray
+    auth_ranks: np.ndarray
+    stats: Stats
+
+
+def run(graph: CsrGraph, src: int = 0, delta: float = 0.85,
+        max_iter: int = 50, mode: str = "xla",
+        device: DeviceLike = None) -> HitsResult:
+    """Host entry (run_hits analog).  `device=None` runs on the CUDA card
+    and raises without one; `device="cpu"` runs the kernel's plain
+    version."""
+    dev = resolve_device(device)
+    if mode != "planes":
+        raise NotImplementedError(
+            f"mode={mode!r} is not ported yet: ROADMAP.md queue 1, item 6")
+    if not isinstance(graph, CsrGraph):
+        raise TypeError("mode='planes' needs a host CsrGraph")
+    fn = get_hits_planes(graph, dev)
+    fn(src, delta, max_iter)            # warm-up: builds the kernel
+    hub, auth, device_ms = fn(src, delta, max_iter)
+    stats = Stats(elapsed_ms=device_ms, search_depth=max_iter,
+                  nodes_visited=graph.num_nodes,
+                  edges_visited=graph.num_edges * max_iter)
+    return HitsResult(hub_ranks=hub, auth_ranks=auth, stats=stats)

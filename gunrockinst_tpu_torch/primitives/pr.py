@@ -1,19 +1,21 @@
-"""PageRank (Gunrock semantics): the host entry `run` and the value-plane
-driver `get_pr_planes`.
+"""PageRank (Gunrock semantics): the host entry `run`, the value-plane
+driver `get_pr_planes` and the pull-SpMV driver `pr_pallas`.
 
-Counterpart of the JAX package's `primitives/pr.py`.  This slice of the
-port carries `mode="planes"`: each iteration sums rank/deg over the
-in-edges with one f32 add sweep of the value kernel (`ops/value.py`,
-fixed summation order, so repeated runs give the same bits), then runs
-the elementwise update in plain torch:
+Counterpart of the JAX package's `primitives/pr.py`.  Each iteration
+sums rank/deg over the in-edges with one f32 add sweep (fixed
+summation order, so repeated runs give the same bits), then runs the
+elementwise update in plain torch:
 
     contrib = rank / deg where active, else 0
     next    = delta * sums + (1 - delta) * personal   (live vertices)
     active  = |next - rank| > threshold
 
 with the dangling-vertex pre-pass of `oracles.remove_dangling_degrees`.
-The XLA scatter mode and the pull-SpMV `mode="pallas"` are not ported
-yet and raise `NotImplementedError`.
+`mode="planes"` sweeps the relabeled device CSC that BFS holds
+(`ops/value.py`); `mode="pallas"` sweeps the input graph's own CSC,
+unrelabeled, through `ops/spmv.py::SpmvSweeper` (the reference's
+pull-SpMV route).  Both loop on the host.  The XLA scatter mode is not
+ported yet and raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -27,12 +29,61 @@ import torch
 
 from gunrockinst_tpu_torch.device import DeviceLike, resolve_device
 from gunrockinst_tpu_torch.graph.csr import CsrGraph
-from gunrockinst_tpu_torch.ops.value import ValueStepper
+from gunrockinst_tpu_torch.ops.spmv import SpmvSweeper
 from gunrockinst_tpu_torch.oracles.ranking import remove_dangling_degrees
 from gunrockinst_tpu_torch.primitives.base import Stats, Timer, sync
-from gunrockinst_tpu_torch.primitives.bfs_pallas import search_graph
+from gunrockinst_tpu_torch.primitives.bfs_pallas import (add_stepper,
+                                                         add_sweep,
+                                                         search_graph)
 
 _planes_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _iterate(sweep, deg1: torch.Tensor, live: torch.Tensor,
+             real: torch.Tensor, personal: torch.Tensor, delta: float,
+             threshold: float, max_iter: int
+             ) -> Tuple[torch.Tensor, int, float]:
+    """The PageRank loop on the host over (n_pad,) state in the ids of
+    `sweep` (f32 contributions -> f32 sums over in-edges): deg1 the
+    dangling-pruned out-degrees clamped to 1, live where they are
+    nonzero, real the vertices that are not padding.  Returns (ranks,
+    iterations, wall ms ended by a device sync)."""
+    dev = deg1.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    d = torch.tensor(delta, **f32)
+    keep = 1.0 - d                      # f32, as the reference
+    thr = torch.tensor(threshold, **f32)
+    zero = torch.zeros((), **f32)
+    sync(dev)
+    with Timer() as t:
+        rank = torch.where(real, keep, zero)
+        active = live
+        it = 0
+        while it <= max_iter and bool(active.any()):
+            # inactive sources contribute 0, so the ungated sum needs no
+            # changed map
+            contrib = torch.where(active, rank / deg1, zero)
+            sums = torch.where(live, sweep(contrib), zero)
+            nxt = torch.where(real, d * sums + keep * personal, zero)
+            active = (torch.abs(nxt - rank) > thr) & real
+            rank = nxt
+            it += 1
+        sync(dev)
+    return rank, it, t.elapsed_ms
+
+
+def _personal(src, n: int, real: torch.Tensor, at) -> torch.Tensor:
+    """The personalization vector: 1 on every real vertex for src < 0,
+    else 1 at index `at(src)` alone."""
+    if src is None or src < 0:
+        return real.to(torch.float32)
+    if not int(src) < n:
+        raise ValueError(f"personalization source {src} out of range "
+                         f"[0, {n})")
+    personal = torch.zeros(real.shape, dtype=torch.float32,
+                           device=real.device)
+    personal[at(int(src))] = 1.0
+    return personal
 
 
 class _PrPlanes:
@@ -42,9 +93,7 @@ class _PrPlanes:
     def __init__(self, csr: CsrGraph, device: torch.device):
         g = search_graph(csr, device)   # the device CSC BFS uses too
         self.g = g
-        self.stepper = ValueStepper(
-            g.stepper.offsets, g.stepper.in_src, mode="add", f32=True,
-            use_active=False)
+        self.stepper = add_stepper(g)
         deg = torch.from_numpy(
             remove_dangling_degrees(csr).astype(np.float32)).to(device)
         self.deg = g.to_internal(torch.clamp(deg, min=1.0))
@@ -56,38 +105,11 @@ class _PrPlanes:
                  src: int = -1, max_iter: int = 50
                  ) -> Tuple[np.ndarray, int, float]:
         g = self.g
-        f32 = dict(dtype=torch.float32, device=g.device)
-        if src is None or src < 0:
-            personal = self.real.to(torch.float32)
-        else:
-            if not int(src) < g.n:
-                raise ValueError(f"personalization source {src} out of "
-                                 f"range [0, {g.n})")
-            personal = torch.zeros(g.n_words * 32, **f32)
-            personal[g.internal(src)] = 1.0
-        d = torch.tensor(delta, **f32)
-        keep = 1.0 - d                      # f32, as the reference
-        thr = torch.tensor(threshold, **f32)
-        zero = torch.zeros((), **f32)
-        sync(g.device)
-        with Timer() as t:
-            rank = torch.where(self.real, keep, zero)
-            active = self.live
-            it = 0
-            while it <= max_iter and bool(active.any()):
-                # inactive sources contribute 0, so the ungated sum
-                # needs no changed map
-                contrib = torch.where(active, rank / self.deg, zero)
-                sums, _, _ = self.stepper.sweep(contrib.view(torch.int32))
-                sums = torch.where(self.live, sums.view(torch.float32),
-                                   zero)
-                nxt = torch.where(self.real, d * sums + keep * personal,
-                                  zero)
-                active = (torch.abs(nxt - rank) > thr) & self.real
-                rank = nxt
-                it += 1
-            sync(g.device)
-        return g.to_input(rank).cpu().numpy(), it, t.elapsed_ms
+        personal = _personal(src, g.n, self.real, g.internal)
+        rank, it, ms = _iterate(
+            lambda c: add_sweep(self.stepper, c), self.deg, self.live,
+            self.real, personal, delta, threshold, max_iter)
+        return g.to_input(rank).cpu().numpy(), it, ms
 
 
 def get_pr_planes(csr: CsrGraph, device: DeviceLike = None) -> _PrPlanes:
@@ -100,6 +122,47 @@ def get_pr_planes(csr: CsrGraph, device: DeviceLike = None) -> _PrPlanes:
     if hit is None:
         hit = per_dev[dev] = _PrPlanes(csr, dev)
     return hit
+
+
+_spmv_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def get_spmv_sweeper(csr: CsrGraph, device: DeviceLike = None
+                     ) -> SpmvSweeper:
+    """The pull-SpMV over `csr`'s own CSC (no relabeling, as the
+    reference's `get_spmv_sweeper`, pr.py:90), cached per graph and
+    device.  It plans nothing and so fits at any size: the reference's
+    SMEM budget check has no counterpart on the card."""
+    dev = resolve_device(device)
+    per_dev = _spmv_cache.setdefault(csr, {})
+    hit = per_dev.get(dev)
+    if hit is None:
+        csc = csr.transposed()
+        hit = per_dev[dev] = SpmvSweeper(*(
+            torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+            for a in (csc.row_offsets, csc.col_indices)))
+    return hit
+
+
+def pr_pallas(csr: CsrGraph, delta: float = 0.85, threshold: float = 0.01,
+              max_iter: int = 50, src: int = -1, device: DeviceLike = None
+              ) -> Tuple[np.ndarray, int, float]:
+    """PageRank with the pull-SpMV as its push (the reference's
+    `pr_pallas`, pr.py:118): the update rule of `get_pr_planes` in input
+    ids, one sweep per iteration from a host loop.  Returns (ranks (n,)
+    f32, iterations, wall ms of the loop, ended by a device sync)."""
+    dev = resolve_device(device)
+    sweeper = get_spmv_sweeper(csr, dev)
+    n, n_pad = csr.num_nodes, sweeper.n_pad
+    deg = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+    deg[:n] = torch.from_numpy(
+        remove_dangling_degrees(csr).astype(np.float32))
+    real = torch.arange(n_pad, device=dev) < n
+    personal = _personal(src, n, real, int)
+    rank, it, ms = _iterate(sweeper, torch.clamp(deg, min=1.0),
+                            (deg > 0) & real, real, personal, delta,
+                            threshold, max_iter)
+    return rank[:n].cpu().numpy(), it, ms
 
 
 @dataclasses.dataclass
@@ -115,18 +178,22 @@ def run(graph: CsrGraph, delta: float = 0.85, threshold: float = 0.01,
         mode: str = "xla", device: DeviceLike = None) -> PrResult:
     """Host entry (run_pr analog, app/pr/pr_app.cu).  src >= 0 enables
     personalized PageRank; normalize=True rescales ranks to sum 1.
+    mode "planes" sweeps the relabeled device CSC (`get_pr_planes`),
+    "pallas" the input graph's own CSC (`pr_pallas`).
 
     `device=None` runs on the CUDA card and raises without one;
     `device="cpu"` runs the kernel's plain version."""
     dev = resolve_device(device)
-    if mode != "planes":
-        item = 8 if mode == "pallas" else 6
+    if mode not in ("planes", "pallas"):
         raise NotImplementedError(
-            f"mode={mode!r} is not ported yet: ROADMAP.md queue 1, "
-            f"item {item}")
+            f"mode={mode!r} is not ported yet: ROADMAP.md queue 1, item 6")
     if not isinstance(graph, CsrGraph):
-        raise TypeError("mode='planes' needs a host CsrGraph")
-    fn = get_pr_planes(graph, dev)
+        raise TypeError(f"mode={mode!r} needs a host CsrGraph")
+    if mode == "planes":
+        fn = get_pr_planes(graph, dev)
+    else:
+        def fn(delta, threshold, src, max_iter):
+            return pr_pallas(graph, delta, threshold, max_iter, src, dev)
     fn(delta, threshold, src, max_iter)  # warm-up: builds the kernel
     ranks, it, device_ms = fn(delta, threshold, src, max_iter)
     if normalize and ranks.sum() > 0:

@@ -148,9 +148,8 @@ def test_unported_modes_and_bad_inputs_raise():
         sssp.run(port, 0, device="cpu")          # the default mode
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cc.run(port, device="cpu")
-    for mode in ("xla", "pallas"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pr.run(port, mode=mode, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pr.run(port, mode="xla", device="cpu")     # "pallas" is ported
     for src in (-1, 3):
         with pytest.raises(ValueError):
             sssp.run(port, src, mode="planes", device="cpu")
