@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (gunrockinst_tpu_torch) on one card.
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
+    python3 chip_smoke.py --variants DIR    # only the sweep variants below,
+                                            # on the kernels of checkout DIR
 
 Phases, each of which raises on failure:
 
@@ -30,13 +32,17 @@ Phases, each of which raises on failure:
                version: the min configurations bit for bit, changed map
                and count included; the add configurations (pr ungated,
                bc_fwd gated on half the sources) allclose (rtol 1e-5,
-               atol 1e-6) and bitwise equal between two kernel runs.  At s20 each configuration
-               is timed (CUDA events, median of repeats) for the kernel
-               and the plain version, beside its bound; for pr also one
-               library call for the same sums, a CSR SpMV.  Then, at
-               s20, each configuration again at every long-list
-               threshold of LONG_DEGREES: equal to the plain version,
-               and its kernel timed;
+               atol 1e-6) and bitwise equal between two kernel runs.
+               At s20 each configuration is timed (CUDA events, median
+               of repeats) for the kernel and the plain version, beside
+               its bound; for pr also one library call for the same
+               sums, a CSR SpMV.  Then each configuration on the
+               edge-case graphs (`edge_graphs`: a star whose centre holds
+               every in-edge, a random graph, both with n not a multiple
+               of 32): equal to the plain version.  Then, at s20, each
+               configuration again at every long-list threshold of
+               LONG_DEGREES: equal to the plain version, and its kernel
+               timed;
   7. sssp    - sssp.run(csr, top-degree src, mode="planes") at rmat-s20,
                unweighted and with integer weights 1..63: distances
                equal scipy's Dijkstra cast to f32, bit for bit; preds
@@ -66,11 +72,14 @@ Phases, each of which raises on failure:
                set takes exactly one chain launch;
  12. touch   - the touched sweep and its fused form (& ~vw) equal the
                plain version at every level of a top-degree and a random
-               search at rmat-s14 and rmat-s20 (no relabeling); at s20
-               both are timed on the frontier of the top-degree search's
-               level-2 vertices, beside the bound, the plain version and
-               one library call for the same hits, a CSR SpMV of the
-               frontier indicator;
+               search at rmat-s14 and rmat-s20 (no relabeling), at every
+               level of the s20 search again with the staged frontier
+               capped at TOUCH_CAP bytes, and on the edge-case graphs
+               (empty, one-source and 30% frontiers, staged whole and not
+               at all); at s20 both are timed on the frontier of the
+               top-degree search's level-2 vertices, beside the bound, the
+               plain version and one library call for the same hits, a
+               CSR SpMV of the frontier indicator;
  13. swept   - at rmat-s20 from the top-degree vertex:
                bfs.run(traversal_mode="pallas"), bfs_pallas() with no
                depth cap and with max_depth=2 give the oracle's labels
@@ -83,9 +92,10 @@ rmat-s20 ef16, seed 42, whose reverse CSC is a second upload:
  14. spmv    - the pull-SpMV (ops/spmv.py, the value kernel's ungated
                add sweep over the unrelabeled CSC) on a seeded contrib
                is allclose (rtol 1e-5, atol 1e-6) to its plain version,
-               two kernel calls bitwise equal; timed on the undirected
-               graph beside its bound, the plain version and one library
-               call for the same sums, a CSR SpMV;
+               two kernel calls bitwise equal, on both s20 graphs and on
+               the edge-case graphs; timed on the undirected graph
+               beside its bound, the plain version and one library call
+               for the same sums, a CSR SpMV;
  15. pr pallas - pr.run(csr, max_iter=5, mode="pallas") on the
                undirected graph, twice: allclose (rtol 1e-4, atol 1e-6)
                to the NumPy oracle and to phase 9's planes ranks, the
@@ -142,6 +152,16 @@ output written (and vw read) whole.  The pull-SpMV's bound counts the
 CSC offsets and in-edge ids read whole, contrib read and the sums
 written once; operations: one add per in-edge.
 
+Phases 6, 12 and 14 also time each sweep on inputs that isolate where
+its time goes: the value sweeps and the pull-SpMV with every in-edge id
+replaced by 0 (the same walks and id loads, every gather one word), the
+touched sweep with every frontier bit set (the least walk) and with none
+(every id of the CSC).  `--variants DIR` runs only those timings, and
+the s20 sweeps as they are, on the kernels of the checkout at DIR
+(this one, or an unpacked earlier commit, so that two versions are timed
+on one card in one call), through the wrappers' calls that every
+version of the port has; it prints lines, no result.
+
 Phases 5 and 7 also replay their searches (levels, rounds) with no host
 sync in between, queued behind a device sleep, so that CUDA events time
 the card's work alone; the card's idle share of the call is one minus
@@ -158,6 +178,9 @@ import time
 import warnings
 from pathlib import Path
 
+if __name__ == "__main__" and sys.argv[1:2] == ["--variants"]:
+    sys.path.insert(0, str(Path(sys.argv[2]).resolve()))   # DIR's package
+
 import numpy as np
 import torch
 
@@ -170,7 +193,7 @@ from gunrockinst_tpu_torch.graph.rmat import rmat_graph
 from gunrockinst_tpu_torch.ops import _build, chain, mega, pull, spmv, value
 from gunrockinst_tpu_torch.ops.words import (mask_from_words, pack_bitmap,
                                              start_words, unpack_bitmap,
-                                             words_from_mask)
+                                             word_rows, words_from_mask)
 from gunrockinst_tpu_torch.oracles import (bc_reference_fast,
                                            bfs_reference, hits_reference,
                                            pagerank_reference,
@@ -218,6 +241,17 @@ VALUE_CONFIGS = {
     "bc_fwd": dict(mode="add", f32=True, use_active=True),   # BC's sweeps
 }
 LONG_DEGREES = (32, 64, 128, 256, 512)   # phase 6's threshold sweep, s20
+TOUCH_CAP = 16384      # bytes: a frontier staging budget below n_words,
+                       # so the touched sweep's L2 path runs too
+STAR_N = 100_003       # the edge-case graphs (edge_graphs): n % 32 != 0
+RAGGED_N = 50_001
+# kernel times of earlier runs (PERF.md section 6; NVIDIA H100 80GB HBM3,
+# 700.00 W), printed beside this run's: the value sweeps' and the
+# pull-SpMV's of this kernel, the touched sweep's of its previous design
+EARLIER_US = {"sssp_w": "228.5-228.8", "sssp_c": "172.5-176.3",
+              "cc": "169.3-173.5", "pr": "177.3-178.3",
+              "bc_fwd": "167.0-167.2", "touch": "282.3-284.0",
+              "touch fused": "9.4-9.8", "spmv": "218.7-218.8"}
 PR_ITERS = 5
 RANK_ITERS = 10        # phase 16: HITS and SALSA iterations
 COT_SIZE = 1000        # phase 17
@@ -413,21 +447,28 @@ def time_levels(g, levels, reach):
     return rows
 
 
-def value_case(g, name, rng):
+def value_case(g, name, rng, **kw):
     """(stepper, vals, ch) of one configuration on g's device CSC, with
-    seeded inputs: f32 values in [0, 100) with 30% inf, or i32 labels
-    in [0, n), or f32 contributions in [0, 1) (pr, bc_fwd); half the
-    ch bits set (all of them for pr); integer weights 1..63 for
-    sssp_w."""
+    seeded inputs (`value_inputs`); `kw` goes to the stepper."""
     st = g.stepper
-    n_pad, m = g.n_words * 32, st.in_src.numel()
-    kw = dict(VALUE_CONFIGS[name])
+    return value_inputs(st.offsets, st.in_src, g.n, name, rng, **kw)
+
+
+def value_inputs(offsets, in_src, n, name, rng, **kw):
+    """(stepper, vals, ch) of one configuration on the device CSC
+    (offsets, in_src) of n vertices, with seeded inputs: f32 values in
+    [0, 100) with 30% inf, or i32 labels in [0, n), or f32 contributions
+    in [0, 1) (pr, bc_fwd); half the ch bits set (all of them for pr);
+    integer weights 1..63 for sssp_w.  `kw` goes to the stepper."""
+    n_words = word_rows(n) * 128
+    n_pad, m = n_words * 32, in_src.numel()
+    kw = dict(VALUE_CONFIGS[name], **kw)
     if name == "sssp_w":
         kw["weights"] = torch.from_numpy(
-            rng.integers(1, 64, m).astype(np.float32)).to(g.device)
-    stepper = value.ValueStepper(st.offsets, st.in_src, **kw)
+            rng.integers(1, 64, m).astype(np.float32)).to(in_src.device)
+    stepper = value.ValueStepper(offsets, in_src, **kw)
     if name == "cc":
-        vals = rng.integers(0, g.n, n_pad).astype(np.int32)
+        vals = rng.integers(0, n, n_pad).astype(np.int32)
     elif name in ("pr", "bc_fwd"):
         vals = rng.random(n_pad, dtype=np.float32).view(np.int32)
     else:
@@ -435,8 +476,33 @@ def value_case(g, name, rng):
         f[rng.random(n_pad) < 0.3] = np.inf
         vals = f.view(np.int32)
     active = rng.random(n_pad) < (1.0 if name == "pr" else 0.5)
-    ch = torch.from_numpy(words_from_mask(active, g.n_words)).to(g.device)
-    return stepper, torch.from_numpy(vals).to(g.device), ch
+    ch = torch.from_numpy(words_from_mask(active, n_words)).to(in_src.device)
+    return stepper, torch.from_numpy(vals).to(in_src.device), ch
+
+
+def edge_graphs():
+    """Two small graphs for the kernels' edge cases, as host CSCs
+    {name: (col_offsets, in_src, n)}, both with n not a multiple of 32:
+    a star whose centre (mid-word) holds every in-edge, and a seeded
+    random graph with 16 in-edges a vertex on average."""
+    n = STAR_N
+    centre = n // 2 + 5
+    star_off = np.zeros(n + 1, np.int64)
+    star_off[centre + 1:] = n - 1
+    star_src = np.delete(np.arange(n), centre)
+    n_r = RAGGED_N
+    rng = np.random.default_rng(SEED)
+    src = rng.integers(0, n_r, 16 * n_r)
+    dst = rng.integers(0, n_r, 16 * n_r)
+    order = np.argsort(dst, kind="stable")
+    r_off = np.concatenate([[0], np.cumsum(np.bincount(dst, minlength=n_r))])
+    return {f"star-{n}": (star_off, star_src, n),
+            f"random-{n_r}": (r_off, src[order], n_r)}
+
+
+def on_device(col_offsets, in_src, dev):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+                 .to(dev) for a in (col_offsets, in_src))
 
 
 def compare_value(stepper, vals, ch, label):
@@ -488,7 +554,7 @@ def value_work(stepper, vals, ch):
     return nbytes, ops
 
 
-def time_value(stepper, vals, ch, name):
+def time_value(stepper, vals, ch, name, card):
     """Kernel, plain and (pr) library ms of one sweep, and its bound."""
     out = torch.empty_like(vals)
     k_ms = event_ms(lambda: stepper.sweep(vals, ch, out=out),
@@ -514,11 +580,28 @@ def time_value(stepper, vals, ch, name):
     nbytes, ops = value_work(stepper, vals, ch)
     row = dict(name=name, bytes=nbytes, ops=ops, ms=k_ms, plain_ms=p_ms,
                library_ms=lib_ms, bound_ms=bound_ms(nbytes, ops))
-    print(f"  {name}: {nbytes} B, kernel {k_ms * 1e3:.1f} us, plain "
-          f"{p_ms * 1e3:.1f} us, bound {row['bound_ms'] * 1e3:.2f} us"
-          + ("" if lib_ms is None else f", library {lib_ms * 1e3:.1f} us"),
-          flush=True)
+    print(f"  {name}: {nbytes} B, kernel {k_ms * 1e3:.1f} us (earlier "
+          f"runs: {EARLIER_US[name]} us; one source "
+          f"{one_source_ms(stepper, vals, ch, name) * 1e3:.1f} us), plain "
+          f"{p_ms * 1e3:.1f} us, bound {row['bound_ms'] * 1e3:.2f} us, "
+          "library "
+          + ("null" if lib_ms is None else f"{lib_ms * 1e3:.1f} us")
+          + f" [{card}]", flush=True)
     return row
+
+
+def one_source_ms(stepper, vals, ch, name):
+    """Kernel ms of the sweep with every in-edge id replaced by 0 (and
+    source 0 active): the same offsets, id loads and walks, but every
+    value and gate gather reads one word, so the gap to the real sweep
+    is what the scattered gathers cost."""
+    one = value.ValueStepper(stepper.offsets,
+                             torch.zeros_like(stepper.in_src),
+                             weights=stepper.weights, **VALUE_CONFIGS[name])
+    ch1 = ch.clone()
+    ch1.view(-1)[0] |= 1
+    out = torch.empty_like(vals)
+    return event_ms(lambda: one.sweep(vals, ch1, out=out), lambda: None, 20)
 
 
 def replay_rounds_ms(stepper, vals, ch, rounds, want):
@@ -606,8 +689,16 @@ def value_phase(csrs, dev, card):
             value_err = max(value_err, compare_value(
                 stepper, vals, ch, f"s{scale} {name}"))
             if scale == 20:
-                value_rows.append(time_value(stepper, vals, ch, name))
+                value_rows.append(time_value(stepper, vals, ch, name,
+                                             card))
                 cases[name] = (stepper, vals, ch)
+    rng = np.random.default_rng(SEED)
+    for gname, (col_offsets, in_src, n) in edge_graphs().items():
+        offsets, src = on_device(col_offsets, in_src, dev)
+        for name in VALUE_CONFIGS:
+            stepper, vals, ch = value_inputs(offsets, src, n, name, rng)
+            value_err = max(value_err, compare_value(
+                stepper, vals, ch, f"{gname} {name}"))
     err, sweep = long_degree_sweep(cases, card)
     print(f"  [{card}]", flush=True)
     done(t0)
@@ -939,6 +1030,37 @@ def touch_phase(csrs, dev, card):
             if scale == 20 and which == "top-degree":
                 fw, vw = levels[2]    # the vertices at level 2
                 row = time_touch(sw, fw, vw, card)
+                capped = pull.PullSweeper(sw.offsets.cpu().numpy(),
+                                          sw.in_src.cpu().numpy(), dev,
+                                          stage_cap=TOUCH_CAP)
+                for d, (fw, vw) in enumerate(levels, 1):
+                    max_err = max(max_err, compare_touch(
+                        capped, fw, vw, f"s20 stage_cap {TOUCH_CAP} B level "
+                                        f"{d}"))
+                print(f"  s20 stage_cap {TOUCH_CAP} B ({capped.staged} of "
+                      f"{capped.n_words} words staged; full budget "
+                      f"{sw.staged}): {len(levels)} levels equal to the "
+                      f"plain version (tolerance: bitwise)", flush=True)
+    rng = np.random.default_rng(SEED)
+    for gname, (col_offsets, in_src, n) in edge_graphs().items():
+        for cap in (None, 0):
+            sw = pull.PullSweeper(col_offsets, in_src, dev, stage_cap=cap)
+            far = torch.zeros(sw.n_words * 32, dtype=torch.bool,
+                              device=dev)
+            far[int(in_src[-1])] = True     # the last in-edge of the last list
+            for what, mask in (
+                    ("empty", torch.zeros_like(far)), ("one far source", far),
+                    ("30%", torch.from_numpy(rng.random(far.numel()) < 0.3)
+                     .to(dev))):
+                mask[n:] = False
+                fw = pack_bitmap(mask, sw.n_words)
+                vw = fw | pack_bitmap(torch.from_numpy(
+                    rng.random(far.numel()) < 0.3).to(dev), sw.n_words)
+                max_err = max(max_err, compare_touch(
+                    sw, fw, vw, f"{gname} stage_cap {cap} frontier {what}"))
+        print(f"  {gname}: empty, one-source and 30% frontiers, staged "
+              f"whole and not at all, plain and fused equal to the plain "
+              f"version (tolerance: bitwise)", flush=True)
     done(t0)
     return max_err, row
 
@@ -966,6 +1088,7 @@ def time_touch(sw, fw, vw, card):
         raise AssertionError("the library SpMV's touched set differs from "
                              "the kernel's")
     lib_ms = event_ms(lambda: a @ x, lambda: None, 20)
+    all_ms, none_ms = touch_variant_ms(sw, fw)
     nbytes, ops = touch_work(sw, fw, None)
     f_bytes, f_ops = touch_work(sw, fw, vw)
     row = dict(ms=k_ms, fused_ms=f_ms, plain_ms=p_ms, library_ms=lib_ms,
@@ -973,11 +1096,26 @@ def time_touch(sw, fw, vw, card):
                fused_bound_ms=bound_ms(f_bytes, f_ops),
                frontier=int(unpack_bitmap(fw, sw.n).sum()))
     print(f"  s20 sweep from the {row['frontier']} level-2 vertices: "
-          f"kernel {k_ms * 1e3:.1f} us (bound {row['bound_ms'] * 1e3:.2f}"
-          f" us, {nbytes} B), fused {f_ms * 1e3:.1f} us (bound "
+          f"kernel {k_ms * 1e3:.1f} us (previous design: "
+          f"{EARLIER_US['touch']} us; bound "
+          f"{row['bound_ms'] * 1e3:.2f} us, {nbytes} B), fused "
+          f"{f_ms * 1e3:.1f} us (previous design: "
+          f"{EARLIER_US['touch fused']} us; bound "
           f"{row['fused_bound_ms'] * 1e3:.2f} us), plain {p_ms * 1e3:.1f}"
-          f" us, library SpMV {lib_ms * 1e3:.1f} us [{card}]", flush=True)
+          f" us, library SpMV {lib_ms * 1e3:.1f} us; every frontier bit "
+          f"set {all_ms * 1e3:.1f} us, none {none_ms * 1e3:.1f} us; "
+          f"{sw.staged} of {sw.n_words} frontier words staged [{card}]",
+          flush=True)
     return row
+
+
+def touch_variant_ms(sw, fw):
+    """Kernel ms of the plain sweep with every frontier bit set (each
+    candidate reads one id and one frontier word: the least walk) and
+    with none set (each reads its whole in-list: every id of the CSC)."""
+    ones, none = torch.full_like(fw, -1), torch.zeros_like(fw)
+    return (event_ms(lambda: sw(ones), lambda: None, 20),
+            event_ms(lambda: sw(none), lambda: None, 20))
 
 
 def sweep_paths(csr20, src, ref_labels, ref_preds, card, counts):
@@ -1032,36 +1170,45 @@ def spmv_work(sw):
     return 4 * ((sw.n + 1) + m + 2 * sw.n_pad), m
 
 
+def compare_spmv(sw, label):
+    """The pull-SpMV against its plain version on a seeded contrib;
+    raises on a difference.  Returns (contrib, the kernel's sums, the
+    largest |kernel - plain|)."""
+    c = np.zeros(sw.n_pad, np.float32)
+    c[: sw.n] = np.random.default_rng(SEED).random(sw.n, dtype=np.float32)
+    contrib = torch.from_numpy(c).to(sw.device)
+    got = sw(contrib)
+    torch.cuda.synchronize()
+    want = sw.reference(contrib)
+    err = float((got.double() - want.double()).abs().max())
+    if not torch.allclose(got, want, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"{label}: pull-SpMV sums differ from the "
+                             f"plain version beyond rtol 1e-5, atol 1e-6 "
+                             f"(max |diff| {err})")
+    if not torch.equal(sw(contrib).view(torch.int32), got.view(torch.int32)):
+        raise AssertionError(f"{label}: two pull-SpMV runs differ")
+    print(f"  {label}: equal to the plain version (allclose rtol 1e-5 atol "
+          f"1e-6, two runs bitwise; max |diff| {err:.3g})", flush=True)
+    return contrib, got, err
+
+
 def spmv_phase(graphs, dev, card):
     """Phase 14: the pull-SpMV against its plain version on both s20
-    graphs; timed on the undirected one beside its bound, the plain
-    version and a library SpMV.  Returns (largest |kernel - plain|, the
-    timing row)."""
+    graphs and on the edge-case graphs; timed on the undirected s20 graph
+    beside its bound, the plain version and a library SpMV.  Returns
+    (largest |kernel - plain|, the timing row)."""
     t0 = phase("14 pull-SpMV vs plain version, rmat-s20")
     max_err, row = 0.0, None
     for kind, csr in graphs.items():
         sw = pr.get_spmv_sweeper(csr, dev)
-        c = np.zeros(sw.n_pad, np.float32)
-        c[: sw.n] = np.random.default_rng(SEED).random(sw.n,
-                                                       dtype=np.float32)
-        contrib = torch.from_numpy(c).to(dev)
-        got = sw(contrib)
-        torch.cuda.synchronize()
-        want = sw.reference(contrib)
-        err = float((got.double() - want.double()).abs().max())
+        contrib, got, err = compare_spmv(sw, kind)
         max_err = max(max_err, err)
-        if not torch.allclose(got, want, rtol=1e-5, atol=1e-6):
-            raise AssertionError(f"{kind}: pull-SpMV sums differ from the "
-                                 f"plain version beyond rtol 1e-5, atol "
-                                 f"1e-6 (max |diff| {err})")
-        if not torch.equal(sw(contrib).view(torch.int32),
-                           got.view(torch.int32)):
-            raise AssertionError(f"{kind}: two pull-SpMV runs differ")
-        print(f"  {kind}: equal to the plain version (allclose rtol 1e-5 "
-              f"atol 1e-6, two runs bitwise; max |diff| {err:.3g})",
-              flush=True)
         if kind == "undirected":
             row = time_spmv(sw, contrib, got, card)
+    for gname, (col_offsets, in_src, n) in edge_graphs().items():
+        offsets, src = on_device(col_offsets, in_src, dev)
+        max_err = max(max_err, compare_spmv(spmv.SpmvSweeper(offsets, src),
+                                            gname)[2])
     done(t0)
     return max_err, row
 
@@ -1085,12 +1232,21 @@ def time_spmv(sw, contrib, got, card):
     nbytes, ops = spmv_work(sw)
     row = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bytes=nbytes,
                ops=ops, bound_ms=bound_ms(nbytes, ops))
-    print(f"  undirected: kernel {k_ms * 1e3:.1f} us, plain "
-          f"{p_ms * 1e3:.1f} us, library SpMV {lib_ms * 1e3:.1f} us (max "
-          f"|diff| to the kernel {err:.3g}), bound "
-          f"{row['bound_ms'] * 1e3:.2f} us ({nbytes} B) [{card}]",
+    print(f"  undirected: kernel {k_ms * 1e3:.1f} us (earlier runs: "
+          f"{EARLIER_US['spmv']}"
+          f" us; one source {spmv_one_source_ms(sw, contrib) * 1e3:.1f} us)"
+          f", plain {p_ms * 1e3:.1f} us, library SpMV "
+          f"{lib_ms * 1e3:.1f} us (max |diff| to the kernel {err:.3g}), "
+          f"bound {row['bound_ms'] * 1e3:.2f} us ({nbytes} B) [{card}]",
           flush=True)
     return row
+
+
+def spmv_one_source_ms(sw, contrib):
+    """Kernel ms of the pull-SpMV with every in-edge id replaced by 0
+    (as `one_source_ms`)."""
+    one = spmv.SpmvSweeper(sw.offsets, torch.zeros_like(sw.in_src))
+    return event_ms(lambda: one(contrib), lambda: None, 20)
 
 
 def pr_pallas_phase(csr20, planes_ranks, ref, card, counts):
@@ -1216,6 +1372,45 @@ def bc_phase(graphs, card, counts):
     done(t0)
 
 
+def variants(dev, card):
+    """`--variants DIR`: the s20 sweeps of phases 6, 12 and 14 as they
+    are and on the variant inputs, on the kernels of the package
+    imported (DIR's)."""
+    import gunrockinst_tpu_torch
+    print(f"  kernels of {Path(gunrockinst_tpu_torch.__file__).parent}",
+          flush=True)
+    csr = graph(20)
+    g = bfs_pallas.search_graph(csr, dev)
+    rng = np.random.default_rng(SEED + 20)
+    for name in VALUE_CONFIGS:
+        st, vals, ch = value_case(g, name, rng)
+        out = torch.empty_like(vals)
+        ms = event_ms(lambda: st.sweep(vals, ch, out=out), lambda: None, 20)
+        print(f"  value {name}: {ms * 1e3:.1f} us, one source "
+              f"{one_source_ms(st, vals, ch, name) * 1e3:.1f} us [{card}]",
+              flush=True)
+    sw = pr.get_spmv_sweeper(csr, dev)
+    c = np.zeros(sw.n_pad, np.float32)
+    c[: sw.n] = np.random.default_rng(SEED).random(sw.n, dtype=np.float32)
+    contrib = torch.from_numpy(c).to(dev)
+    ms = event_ms(lambda: sw(contrib), lambda: None, 20)
+    print(f"  spmv: {ms * 1e3:.1f} us, one source "
+          f"{spmv_one_source_ms(sw, contrib) * 1e3:.1f} us [{card}]",
+          flush=True)
+    sw = bfs_pallas.get_pull_sweeper(csr, dev)
+    for d, (fw, vw) in enumerate(touch_levels(sw, sources(csr)[0])):
+        k_ms = event_ms(lambda: sw(fw), lambda: None, 20)
+        f_ms = event_ms(lambda: sw.sweep_fused(fw, vw), lambda: None, 20)
+        extra = ""
+        if d == 2:
+            all_ms, none_ms = touch_variant_ms(sw, fw)
+            extra = (f", every frontier bit set {all_ms * 1e3:.1f} us, none "
+                     f"{none_ms * 1e3:.1f} us")
+        print(f"  touch level {d}: {k_ms * 1e3:.1f} us, fused "
+              f"{f_ms * 1e3:.1f} us{extra} [{card}]", flush=True)
+    return 0
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.perf_counter()
@@ -1224,6 +1419,12 @@ def main() -> int:
               file=sys.stderr)
         return 1
     dev = resolve_device(None)
+    if sys.argv[1:2] == ["--variants"]:
+        t0 = phase("sweep variants")
+        variants(dev, card_line())
+        done(t0)
+        faulthandler.cancel_dump_traceback_later()
+        return 0
 
     t0 = phase("1 device")
     kind = torch.cuda.get_device_name(0)

@@ -15,6 +15,13 @@ On word maps (`ops/words.py`):
 The fused form is `_pull_kernel_fused` with the visited words in place
 of the reference's unvisited words.
 
+On the card each block of the plain sweep first copies the frontier
+words into shared memory, as many as the card lets one block hold
+(`staged_words`); `stage_cap` caps those bytes, for tests that make the
+kernel read the rest from L2.  A budget the card refuses raises.  The
+fused form reads the frontier words of unvisited vertices only, and
+stages none.
+
 The wrapper launches the kernel for CUDA tensors and takes the plain
 version, `touch_reference`, only for CPU tensors.
 """
@@ -34,14 +41,58 @@ from gunrockinst_tpu_torch.ops.words import (pack_bitmap, unpack_bitmap,
 # Launches of the CUDA kernel; the plain version does not count.
 launches = 0
 
+HEAD = 128   # a list's first ids, read by the sweep; the tail walk reads on
+TAIL_CHUNK = 512    # ids of a list's tail that one warp of the walk takes
+ALIGN = 16   # bytes: fw starts on this boundary
+NO_TAIL = 2**31 - 1   # a head that covers every list: no tail walk
+
 
 def _kernel_fn():
     fn = _build.load("touch_sweep").gt_touch_sweep
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 5 + [i32] * 2 + [ptr]
+        fn.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
         fn.restype = i32
     return fn
+
+
+def _smem_limit() -> int:
+    """The dynamic shared-memory bytes one block of the kernel may stage
+    on the current card: the opt-in limit less its static shared
+    memory."""
+    got = ctypes.c_int(0)
+    err = _build.load("touch_sweep").gt_touch_sweep_smem_limit(
+        ctypes.byref(got))
+    if err != 0:
+        raise RuntimeError(f"touch_sweep shared-memory query failed: CUDA "
+                           f"error {err}")
+    return got.value
+
+
+def tail_room(offsets: torch.Tensor, head: int, chunk: int) -> int:
+    """Pieces the tail walk may be handed in one sweep: the ids of every
+    in-list past its first `head`, in pieces of at most `chunk`."""
+    past = ((offsets[1:] - offsets[:-1]).long() - head).clamp(min=0)
+    return int(((past + chunk - 1) // chunk).sum())
+
+
+def _check_cap(stage_cap: Optional[int]) -> Optional[int]:
+    if stage_cap is None:
+        return None
+    if isinstance(stage_cap, bool) or not isinstance(stage_cap, int) \
+            or stage_cap < 0:
+        raise ValueError(f"stage_cap must be a non-negative number of "
+                         f"bytes, not {stage_cap!r}")
+    return stage_cap
+
+
+def staged_words(n_words: int, limit_bytes: int) -> int:
+    """How many leading frontier words a block stages in `limit_bytes`
+    of shared memory: all n_words if they fit, else the most that fit in
+    whole 16-byte steps (the bulk copy's unit)."""
+    if limit_bytes < 0:
+        raise ValueError(f"a shared-memory limit of {limit_bytes} bytes")
+    return min(n_words, limit_bytes // 16 * 4)
 
 
 def touch_reference(offsets: torch.Tensor, in_src: torch.Tensor,
@@ -70,10 +121,15 @@ class PullSweeper:
     """Touched sweeps over the in-edges of an n-vertex graph.
 
     `col_offsets` (n+1,) and `in_src` (m,) are the graph's CSC (the CSR
-    of its transpose), on the host; they are put on `device` once."""
+    of its transpose), on the host; they are put on `device` once.
+    `stage_cap` (bytes) caps the frontier words a block of the kernel
+    stages in shared memory; None takes the card's whole budget.  `fw`
+    must start on an ALIGN (16) byte boundary, the bulk copy's unit, as
+    every tensor PyTorch allocates does; a view such as `x[1:]` may
+    not."""
 
     def __init__(self, col_offsets: np.ndarray, in_src: np.ndarray,
-                 device: torch.device):
+                 device: torch.device, stage_cap: Optional[int] = None):
         n = int(col_offsets.shape[0] - 1)
         m = int(in_src.shape[0])
         if m >= 2**31:
@@ -86,6 +142,10 @@ class PullSweeper:
         self.in_src = torch.from_numpy(
             np.ascontiguousarray(in_src, dtype=np.int32)).to(device)
         self.device = self.offsets.device    # with its index on CUDA
+        self.stage_cap = _check_cap(stage_cap)
+        self.staged = None      # frontier words staged, set on the card
+        self._tails = None      # the tail walk's scratch, on the card
+        self._parity = 0        # which tail count the next sweep uses
         self._dst = None
 
     def edge_dst(self) -> torch.Tensor:
@@ -107,6 +167,10 @@ class PullSweeper:
             if tuple(t.shape) != (self.rows, 128):
                 raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                                  f"expected ({self.rows}, 128)")
+        if maps["fw"].data_ptr() % ALIGN:
+            raise ValueError(f"fw must start on a {ALIGN}-byte boundary: "
+                             "the kernel copies it to shared memory in "
+                             "16-byte units")
 
     def _sweep(self, fw: torch.Tensor,
                vw: Optional[torch.Tensor]) -> torch.Tensor:
@@ -116,20 +180,43 @@ class PullSweeper:
                                    self.edge_dst())
         if fw.device.type != "cuda":
             raise ValueError(f"no sweep kernel for device {fw.device}")
+        if self.staged is None:
+            with torch.cuda.device(fw.device):
+                limit = _smem_limit()
+            if self.stage_cap is not None:
+                limit = min(limit, self.stage_cap)
+            self.staged = staged_words(self.n_words, limit)
+            room = tail_room(self.offsets, HEAD, TAIL_CHUNK)
+            self._tails = (torch.empty(3 * max(room, 1), dtype=torch.int32,
+                                       device=self.device),
+                           torch.zeros(2, dtype=torch.int32,
+                                       device=self.device), room)
+        tails, counters, room = self._tails
+        staged, head = self.staged, HEAD
+        if vw is not None:
+            # the fused form reads the frontier words of unvisited vertices
+            # only, and its walks are short: staging and the tail walk's
+            # grid barrier cost more than they save (PERF.md section 6)
+            staged, head, room = 0, NO_TAIL, 0
         out = torch.empty_like(fw)
         err = _kernel_fn()(
             self.offsets.data_ptr(), self.in_src.data_ptr(),
             fw.data_ptr(), None if vw is None else vw.data_ptr(),
-            out.data_ptr(), self.n, self.n_words,
+            out.data_ptr(), tails.data_ptr(), counters.data_ptr(), self.n,
+            self.n_words, staged, head, TAIL_CHUNK, room, self._parity,
             torch.cuda.current_stream(fw.device).cuda_stream)
         if err != 0:
+            counters.zero_()
             raise RuntimeError(f"touch_sweep kernel launch failed: CUDA "
                                f"error {err}")
+        self._parity ^= 1
         launches += 1
         return out
 
     def __call__(self, fw: torch.Tensor) -> torch.Tensor:
-        """Touched words of frontier words `fw`."""
+        """Touched words of frontier words `fw`.  On the card the tail
+        walk's scratch belongs to the sweeper, so one sweeper runs one
+        sweep at a time (PyTorch's current stream orders them)."""
         self._check(fw=fw)
         return self._sweep(fw, None)
 
