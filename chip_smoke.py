@@ -2,8 +2,10 @@
 """Smoke run of the PyTorch/CUDA port (gunrockinst_tpu_torch) on one card.
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
-    python3 chip_smoke.py --variants DIR    # only the sweep variants below,
-                                            # on the kernels of checkout DIR
+    python3 chip_smoke.py --variants DIR [bfs]   # only the timings of the
+                                    # BFS kernels and (without `bfs`) the
+                                    # sweep variants below, on the kernels
+                                    # of checkout DIR
 
 Phases, each of which raises on failure:
 
@@ -17,9 +19,23 @@ Phases, each of which raises on failure:
                every level of one search from the top-degree vertex and
                one from a random vertex, the step kernel's nfw, vw',
                planes' and n_new equal its plain PyTorch version's bit
-               for bit; then each level of the s20 top-degree search is
-               timed (CUDA events, median of repeats) for the kernel and
-               the plain version, beside the level's bound;
+               for bit, with the direction left to the kernel, forced to
+               push and forced to pull; then the whole search as the
+               main path runs it (each level's input the kernel's own
+               output) equals the plain version's last state.  The same
+               on the edge-case graphs: the star of `edge_graphs` both
+               ways (every edge into its centre; every edge out of it, a
+               push hub), the random graph (n not a multiple of 32) and
+               rmat-s14 directed.  Then level 2 of the rmat-s14
+               random-source search on a frontier edited through a raw
+               pointer after level 1 (a hub that level did not list put
+               in, one it listed taken out), so that the wrapper still
+               trusts its stale slot: equal to the plain version in
+               every direction.  Each level of the four rmat searches
+               is timed (CUDA events between levels, the search run as
+               the main path runs it, median of repeats; also forced to
+               push and to pull) with the direction it took, beside the
+               plain version and the level's bound;
   4. bfs.run - bfs.run(csr, src, traversal_mode="auto") at rmat-s20:
                labels and preds equal the NumPy oracle exactly;
   5. multi   - get_fused_bfs_multi(csr, reps=64) at rmat-s20 over the 64
@@ -54,18 +70,23 @@ Phases, each of which raises on failure:
   9. pr      - pr.run(csr, max_iter=5, mode="planes") at rmat-s20 is
                allclose (rtol 1e-4, atol 1e-6) to the NumPy oracle, and
                two calls give the same bits.
- 10. chain   - one search of the chain kernel (whole BFS in one
-               cooperative launch) equals its plain version bit for bit
-               (planes, visited words, depth): a 600-vertex path from
-               vertex 0 first, then grid-64^2 and grid-256^2 from
-               argmax(degrees), rmat-s14 from the top-degree and a
-               random vertex, and grid-1024^2 from argmax(degrees).  At
-               grid-1024^2 the kernel (CUDA events, median of 10) and
-               the plain version are timed beside the bound, and so are
-               (host clock, median of 3) the step_full baseline
-               (SearchGraph.search with full planes, one launch and one
-               host read per level) and the old route (the 8-plane pass,
-               then step_full);
+ 10. chain   - one search of the chain kernel (whole BFS in one launch
+               on one thread-block cluster) equals its plain version bit
+               for bit (planes, visited words, depth), on one block with
+               the visited map in shared memory (widths [1]) and on a
+               cluster with the map in global memory (map_cap 0): paths
+               of 600 and 2045 vertices from vertex 0,
+               grid-64^2 and grid-256^2 from argmax(degrees), rmat-s14
+               undirected and directed from the top-degree and a random
+               vertex, and grid-1024^2 from argmax(degrees), with the
+               layout the route takes from the level widths its
+               8-plane loop counts, and forced to global memory.  At
+               grid-1024^2 the kernel (CUDA events, median of 10; both
+               placements) and the plain version are timed beside the
+               bound, and so are (host clock, median of 3) the step_full
+               baseline (SearchGraph.search with full planes, one launch
+               and one host read per level) and the old route (the
+               8-plane pass, then step_full);
  11. deep    - bfs.run(csr, src, traversal_mode="auto") at grid-1024^2
                from argmax(degrees): route "chain", labels and preds
                equal the NumPy oracle; one more search once went_deep is
@@ -126,15 +147,18 @@ last lines are the kernels line, the nvidia-smi line and {"ok": true,
 ...}.  Without CUDA the script exits nonzero and prints no result; a
 watchdog ends a hung run with a traceback and a nonzero exit.
 
-A level's bound is the larger of its bytes over 3.35 TB/s and its
-operations over 67 T/s (H100 SXM data sheet: HBM rate and the non-tensor
-32-bit rate).  Bytes: vw and reach read whole and nfw written whole;
-one CSC offset per candidate vertex (reachable and unvisited); the
-in-edge ids a candidate must read up to its first frontier hit (all of
-them when there is none) and the frontier words those ids point to;
-and, for each word that gains a vertex, the vw' word and the label
-plane word of each set bit of d written.  Operations: three per in-edge
-read.
+A level's bound is the lesser of the bounds of its two orders (pull and
+push), each the larger of its bytes over 3.35 TB/s and its operations
+over 67 T/s (H100 SXM data sheet: HBM rate and the non-tensor 32-bit
+rate).  Pull bytes: vw and reach read whole and nfw written whole; one
+CSC offset per candidate vertex (reachable and unvisited); the in-edge
+ids a candidate must read up to its first frontier hit (all of them
+when there is none) and the frontier words those ids point to.  Push
+bytes: fw read whole and nfw written whole; one out-offset per frontier
+vertex and its out-edge ids; the reach and visited words of the
+destinations.  Both: for each word that gains a vertex, the vw' word and
+the label plane word of each set bit of d written.  Operations: three
+per edge read.
 
 A value sweep's bound counts the CSC offsets and in-edge ids read
 whole, the weights of the edges whose source is active (sssp_w), the
@@ -156,11 +180,21 @@ Phases 6, 12 and 14 also time each sweep on inputs that isolate where
 its time goes: the value sweeps and the pull-SpMV with every in-edge id
 replaced by 0 (the same walks and id loads, every gather one word), the
 touched sweep with every frontier bit set (the least walk) and with none
-(every id of the CSC).  `--variants DIR` runs only those timings, and
-the s20 sweeps as they are, on the kernels of the checkout at DIR
-(this one, or an unpacked earlier commit, so that two versions are timed
-on one card in one call), through the wrappers' calls that every
-version of the port has; it prints lines, no result.
+(every id of the CSC).  `--variants DIR` runs only timings on the
+kernels of the checkout at DIR (this one, or an unpacked earlier commit,
+so that two versions are timed on one card in one call), through the
+wrappers' calls that every version of the port has: the step kernel per
+level of the four rmat searches of phase 3 (and forced to push and to
+pull, where the wrapper has a direction) and on a level with no
+candidate; at grid-1024^2 the 8-plane host level loop (wall time, and
+per level the host time in the step wrapper, of it the wrapper's C
+call, and the time between CUDA events around the step; then its
+Python functions by cProfile); the chain kernel on the 2045-vertex path,
+at grid-1024^2, on the 112^3 lattice (wide levels) and on rmat-s18 with
+a 400-vertex tail (a wide core, then a thin tail), in each layout where
+the wrapper has a choice, with the layout the route would take; then,
+unless `bfs` is given, the s20 sweeps as they are and on those inputs.
+It prints lines, no result.
 
 Phases 5 and 7 also replay their searches (levels, rounds) with no host
 sync in between, queued behind a device sleep, so that CUDA events time
@@ -231,7 +265,10 @@ KERNELS = {   # every kernel of the BFS and value-plane paths
         replaces="gunrockinst_tpu/ops/pallas_spmv.py:273",
         also_replaces=["gunrockinst_tpu/ops/pallas_spmv.py:296"]),
 }
+HUB_IDS = 256          # mega_step.cu's kHub: longer out-lists are listed
 CHAIN_PATH = 600       # phase 10's first graph: a path, depth 600
+CHAIN_DEEP = 2045      # a path as deep as grid-1024^2's search: one vertex
+                       # a level, the fixed cost of a chain level
 # the value kernel's configurations on the path (ops/value.py keywords)
 VALUE_CONFIGS = {
     "sssp_w": dict(mode="min", f32=True),          # weights per edge
@@ -252,6 +289,9 @@ EARLIER_US = {"sssp_w": "228.5-228.8", "sssp_c": "172.5-176.3",
               "cc": "169.3-173.5", "pr": "177.3-178.3",
               "bc_fwd": "167.0-167.2", "touch": "282.3-284.0",
               "touch fused": "9.4-9.8", "spmv": "218.7-218.8"}
+# the BFS kernels' earlier designs (PRs 4-8), in ms: the step kernel per
+# rmat-s20 top-degree search, the chain kernel per grid-1024^2 search
+EARLIER_MS = {"step": "0.1231-0.1262", "chain": "17.25-18.09"}
 PR_ITERS = 5
 RANK_ITERS = 10        # phase 16: HITS and SALSA iterations
 COT_SIZE = 1000        # phase 17
@@ -311,16 +351,36 @@ def pull_work(offsets, in_src, dst, fw, cand):
 
 
 def level_work(g, fw, vw, reach, d, n_planes):
-    """(bytes, operations) one level needs on these inputs."""
+    """(bytes, operations, direction) of the cheaper of the two orders
+    of one level on these inputs, by its bound.  Pull: vw and reach read
+    whole and nfw written whole; one CSC offset per candidate vertex
+    (reachable and unvisited); the in-edge ids a candidate must read up
+    to its first frontier hit (all of them when there is none) and the
+    frontier words those ids point to.  Push: fw read whole and nfw
+    written whole; one out-offset per frontier vertex and its out-edge
+    ids; the reach and visited words of the destinations.  Both: for
+    each word that gains a vertex, the vw' word and the label plane word
+    of each set bit of d written.  Operations: three per edge read."""
     st = g.stepper
     cand = unpack_bitmap(reach & ~vw, st.n)
     edges, fw_words, cands, new = pull_work(st.offsets, st.in_src,
                                             st.edge_dst(), fw, cand)
     changed = int(torch.unique(new >> 5).numel())
     planes_hit = bin(d & ((1 << n_planes) - 1)).count("1")
-    nbytes = 4 * (3 * g.n_words + fw_words + cands + edges
-                  + changed * (1 + planes_hit))
-    return nbytes, 3 * edges
+    written = changed * (1 + planes_hit)
+    pull = (4 * (3 * g.n_words + fw_words + cands + edges + written),
+            3 * edges, "pull")
+    out_off, out_dst = st.out_csr()
+    front = torch.nonzero(unpack_bitmap(fw, st.n)).squeeze(1)
+    beg, end = out_off[front].long(), out_off[front + 1].long()
+    out_edges = int((end - beg).sum())
+    span = end - beg
+    first = torch.repeat_interleave(beg - torch.cumsum(span, 0) + span, span)
+    dst = out_dst[first + torch.arange(first.numel(), device=fw.device)]
+    dst_words = int(torch.unique(dst.long() >> 5).numel())
+    push = (4 * (2 * g.n_words + front.numel() + out_edges + 2 * dst_words
+                 + written), 3 * out_edges, "push")
+    return min(pull, push, key=lambda w: bound_ms(w[0], w[1]))
 
 
 def bound_ms(nbytes, ops):
@@ -384,9 +444,13 @@ def replay_ms(g, srcs, depths, vws):
 
 
 def compare_search(g, psrc, label):
-    """Every level of the search from psrc through the kernel and the
-    plain version on the same inputs; raises on the first difference.
-    Returns the per-level inputs and the largest |kernel - plain|."""
+    """Every level of the search from psrc through the kernel (in every
+    direction it can be forced to) and the plain version on the same
+    inputs; raises on the first difference.  Then the whole search as
+    the main path runs it (`SearchGraph.search`: each level's input the
+    kernel's own output, the direction chosen on the card) against the
+    plain version's final visited words, planes and depth.  Returns the
+    per-level inputs and the largest |kernel - plain|."""
     st = g.stepper
     reach = g.reach(psrc)
     fw = g.start(psrc)
@@ -394,56 +458,150 @@ def compare_search(g, psrc, label):
     planes = torch.zeros((8 * g.rows, 128), dtype=torch.int32,
                          device=fw.device)
     levels, max_err = [], 0
+    hows = step_directions(st)
     for d in range(1, g.n + 1):
         want = mega.step_reference(st.offsets, st.in_src, fw, vw, planes,
                                    d, reach, st.edge_dst())
-        vw_k, planes_k = vw.clone(), planes.clone()
-        nfw_k, new_k = st.step(fw, vw_k, planes_k, d, reach)
-        torch.cuda.synchronize()
-        for name, got, exp in zip(("nfw", "vw'", "planes'", "n_new"),
-                                  (nfw_k, vw_k, planes_k, new_k), want):
-            err = int((got.long() - exp.long()).abs().max())
-            max_err = max(max_err, err)
-            if not torch.equal(got, exp):
-                raise AssertionError(f"{label} level {d}: kernel {name} "
-                                     f"differs from the plain version "
-                                     f"(max |diff| {err})")
+        for how in hows:
+            kw = {} if how == "as is" else dict(direction=how)
+            vw_k, planes_k = vw.clone(), planes.clone()
+            nfw_k, new_k = st.step(fw, vw_k, planes_k, d, reach, **kw)
+            torch.cuda.synchronize()
+            for name, got, exp in zip(("nfw", "vw'", "planes'", "n_new"),
+                                      (nfw_k, vw_k, planes_k, new_k), want):
+                err = int((got.long() - exp.long()).abs().max())
+                max_err = max(max_err, err)
+                if not torch.equal(got, exp):
+                    raise AssertionError(
+                        f"{label} level {d} ({how}): kernel {name} differs "
+                        f"from the plain version (max |diff| {err})")
         levels.append(dict(d=d, fw=fw, vw=vw, planes=planes,
-                           n_new=int(new_k)))
+                           n_new=int(want[3])))
         fw, vw, planes = want[0], want[1], want[2]
-        if int(new_k) == 0:
+        if int(want[3]) == 0:
             break
-    print(f"  {label}: {len(levels)} levels equal to the plain version "
-          f"(tolerance: bitwise; new per level "
-          f"{[lv['n_new'] for lv in levels]})", flush=True)
+    planes_c, vw_c, depth_c, _ = g.search(psrc, reach, 8, g.n)
+    if depth_c != len(levels) or not (torch.equal(vw_c, vw)
+                                      and torch.equal(planes_c, planes)):
+        raise AssertionError(f"{label}: the chained search differs from "
+                             f"the plain version (depth {depth_c}, "
+                             f"expected {len(levels)})")
+    print(f"  {label}: {len(levels)} levels equal to the plain version, "
+          f"{' and '.join(hows)} (tolerance: bitwise; new per level "
+          f"{[lv['n_new'] for lv in levels]}); the chained search too",
+          flush=True)
     return levels, reach, max_err
 
 
-def time_levels(g, levels, reach):
-    """Per-level kernel ms, plain ms and bound ms of one search."""
+def raw_alias(t):
+    """A tensor on t's memory with a version counter of its own: a write
+    through it is what a raw kernel's write is to t (t._version stays)."""
+    class Raw:
+        __cuda_array_interface__ = dict(
+            shape=tuple(t.shape), typestr="<i4", strides=None,
+            data=(t.data_ptr(), False), version=2)
+    return torch.as_tensor(Raw(), device=t.device)
+
+
+def compare_stale_slot(g, psrc, label):
+    """Level 2 of the search from psrc on a frontier edited after the
+    launch that made it, through a raw pointer: a hub (more than
+    HUB_IDS out-ids) that launch did not claim goes in and one it
+    claimed (and listed) comes out, so the slot the wrapper still
+    trusts lists the wrong hubs.  Each direction must still equal the
+    plain version on the edited input; raises otherwise."""
     st = g.stepper
+    reach = g.reach(psrc)
+    out_off = st.out_csr()[0]
+    hub = (out_off[1:] - out_off[:-1]) > HUB_IDS
+    hows = step_directions(st)
+    for how in hows:
+        kw = {} if how == "as is" else dict(direction=how)
+        fw = g.start(psrc)
+        vw = fw.clone()
+        planes = torch.zeros((8 * g.rows, 128), dtype=torch.int32,
+                             device=fw.device)
+        nfw, _ = st.step(fw, vw, planes, 1, reach)
+        front = unpack_bitmap(nfw, g.n)
+        gone = torch.nonzero(hub & front).flatten()
+        added = torch.nonzero(hub & ~front).flatten()
+        if gone.numel() == 0 or added.numel() == 0:
+            raise AssertionError(f"{label}: no listed hub to take out or "
+                                 "no other hub to put in")
+        version = nfw._version
+        words = raw_alias(nfw).view(-1)
+        u, v = int(added[0]), int(gone[0])
+        words[u >> 5] |= int(np.int32(np.uint32(1 << (u & 31))))
+        words[v >> 5] &= int(np.int32(np.uint32(~(1 << (v & 31)) &
+                                                0xffffffff)))
+        if nfw._version != version or st._last_nfw is not nfw:
+            raise AssertionError(f"{label}: the wrapper would not trust "
+                                 "its slot; the case tests nothing")
+        want = mega.step_reference(st.offsets, st.in_src, nfw, vw, planes,
+                                   2, reach, st.edge_dst())
+        got = st.step(nfw, vw, planes, 2, reach, **kw)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("nfw", "vw'", "planes'", "n_new"),
+                              (got[0], vw, planes, got[1]), want):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"{label} ({how}): on a frontier edited behind the "
+                    f"wrapper's back, kernel {name} differs from the "
+                    "plain version")
+    print(f"  {label}: level 2 on a frontier edited through a raw pointer "
+          f"after level 1 (hub {u} put in, listed hub {v} taken out; the "
+          f"wrapper trusted its stale slot) equal to the plain version, "
+          f"{' and '.join(hows)} (tolerance: bitwise)", flush=True)
+
+
+def chained_directions(g, psrc, depth):
+    """The direction each level of the search from psrc took on the
+    card, run as the main path runs it (one host read per level)."""
+    st = g.stepper
+    reach = g.reach(psrc)
+    fw = g.start(psrc)
+    vw = fw.clone()
+    planes = torch.zeros((8 * g.rows, 128), dtype=torch.int32,
+                         device=fw.device)
+    taken = []
+    for d in range(1, depth + 1):
+        fw, _ = st.step(fw, vw, planes, d, reach)
+        taken.append(st.last_direction())
+    return taken
+
+
+def time_levels(g, levels, reach, psrc, label, card):
+    """Per-level kernel ms (chained, as the main path runs the search;
+    also forced to push and to pull), the direction each level took,
+    plain ms and bound ms of one search."""
+    st = g.stepper
+    depth = len(levels)
+    chained, whole = chained_levels_ms(g, psrc, depth, 20)
+    forced = {how: chained_levels_ms(g, psrc, depth, 20, direction=how)[0]
+              for how in ("push", "pull")}
+    taken = chained_directions(g, psrc, depth)
     rows = []
-    for lv in levels:
+    for i, lv in enumerate(levels):
         d, fw, vw, planes = lv["d"], lv["fw"], lv["vw"], lv["planes"]
-        vw_k, planes_k = vw.clone(), planes.clone()
-
-        def restore():
-            vw_k.copy_(vw)
-            planes_k.copy_(planes)
-
-        k_ms = event_ms(lambda: st.step(fw, vw_k, planes_k, d, reach),
-                        restore, 20)
         p_ms = event_ms(lambda: mega.step_reference(
             st.offsets, st.in_src, fw, vw, planes, d, reach,
             st.edge_dst()), lambda: None, 5)
-        nbytes, ops = level_work(g, fw, vw, reach, d,
-                                 planes.shape[0] // g.rows)
+        nbytes, ops, order = level_work(g, fw, vw, reach, d,
+                                        planes.shape[0] // g.rows)
         rows.append(dict(d=d, n_new=lv["n_new"], bytes=nbytes, ops=ops,
-                         ms=k_ms, plain_ms=p_ms,
-                         bound_ms=bound_ms(nbytes, ops)))
-        print(f"  level {d}: new {lv['n_new']}, {nbytes} B, kernel "
-              f"{k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, bound "
-              f"{rows[-1]['bound_ms'] * 1e3:.2f} us", flush=True)
+                         ms=chained[i], plain_ms=p_ms, direction=taken[i],
+                         bound_ms=bound_ms(nbytes, ops), bound_order=order))
+        print(f"  {label} level {d}: new {lv['n_new']}, took {taken[i]}, "
+              f"kernel {chained[i] * 1e3:.1f} us (push "
+              f"{forced['push'][i] * 1e3:.1f}, pull "
+              f"{forced['pull'][i] * 1e3:.1f}), plain {p_ms * 1e3:.1f} us, "
+              f"bound {rows[-1]['bound_ms'] * 1e3:.2f} us ({order}, "
+              f"{nbytes} B) [{card}]", flush=True)
+    print(f"  {label}: search {whole * 1e3:.1f} us chained (sum of levels "
+          f"{sum(r['ms'] for r in rows) * 1e3:.1f} us; earlier design "
+          f"{EARLIER_MS['step']} ms at s20 top-degree), bound "
+          f"{sum(r['bound_ms'] for r in rows) * 1e3:.2f} us [{card}]",
+          flush=True)
     return rows
 
 
@@ -498,6 +656,23 @@ def edge_graphs():
     r_off = np.concatenate([[0], np.cumsum(np.bincount(dst, minlength=n_r))])
     return {f"star-{n}": (star_off, star_src, n),
             f"random-{n_r}": (r_off, src[order], n_r)}
+
+
+def step_edge_graphs():
+    """The step kernel's edge-case graphs as CsrGraphs: `edge_graphs`'
+    star (every edge into its centre), the same star reversed (every
+    edge out of it: a push hub), the random graph (n not a multiple of
+    32, directed), and rmat-s14 directed."""
+    out = {}
+    for name, (col_offsets, in_src, n) in edge_graphs().items():
+        into = CsrGraph.from_arrays(col_offsets, in_src)   # the transpose
+        if name.startswith("star"):
+            out[f"{name} out"] = into
+            out[f"{name} in"] = into.transposed()
+        else:
+            out[name] = into.transposed()
+    out["s14 directed"] = graph(14, undirected=False)
+    return out
 
 
 def on_device(col_offsets, in_src, dev):
@@ -807,11 +982,14 @@ def lattice(side):
     return csr
 
 
-def compare_chain(g, psrc, label):
+def compare_chain(g, psrc, label, map_cap=None, widths=None):
     """One chain-kernel search from psrc against the plain version on
-    the same graph; raises on a difference.  Returns (the ChainBfs,
-    its outputs, the largest |kernel - plain|)."""
-    ch = chain.ChainBfs(g, max((g.n + 1).bit_length(), 1))
+    the same graph; raises on a difference.  `map_cap` and `widths` go
+    to ChainBfs (map_cap 0: the visited map in global memory; widths [1]:
+    one block, where the map fits).  Returns (the ChainBfs, its outputs,
+    the largest |kernel - plain|)."""
+    ch = chain.ChainBfs(g, max((g.n + 1).bit_length(), 1), map_cap=map_cap,
+                        widths=widths)
     t0 = time.perf_counter()
     got = ch(psrc)
     torch.cuda.synchronize()
@@ -828,9 +1006,18 @@ def compare_chain(g, psrc, label):
                                  f"from the plain version (max |diff| "
                                  f"{err})")
     print(f"  {label}: depth {int(got[2])}, {ch.planes} planes, equal to "
-          f"the plain version (tolerance: bitwise; grid {ch.grid_blocks} "
-          f"blocks; first call {t_kernel:.3f} s)", flush=True)
+          f"the plain version (tolerance: bitwise; {chain_layout(ch)}; "
+          f"first call {t_kernel:.3f} s)", flush=True)
     return ch, got, max_err
+
+
+def chain_layout(ch):
+    """The cluster, visited-map placement and shared frontier list room
+    of ch's last launch."""
+    where = ("visited map in its shared memory" if ch.cluster == 1
+             else "visited map in global memory")
+    return (f"cluster of {ch.cluster} blocks, {where}, {ch.q} entries of "
+            "each frontier list in shared memory")
 
 
 def chain_work(g, vw, n_planes):
@@ -859,29 +1046,31 @@ def wall_ms(run, reps):
 
 
 def chain_phase(csr14, dev, card):
-    """Phase 10: the chain kernel against its plain version on a path,
-    grids and rmat-s14; then timed at grid-1024^2 beside the step_full
-    baseline and the old route.  Returns (largest |kernel - plain|, the
-    timing row, the grid-1024^2 graph)."""
+    """Phase 10: the chain kernel against its plain version on paths,
+    grids, rmat-s14 undirected and directed, each visited-map placement;
+    then timed at grid-1024^2 beside the step_full baseline and the old
+    route.  Returns (largest |kernel - plain|, the timing row, the
+    grid-1024^2 graph)."""
     t0 = phase("10 chain kernel vs plain version")
     max_err = 0
-    u = np.arange(CHAIN_PATH - 1, dtype=np.int64)
-    path = CsrGraph.from_coo(CooGraph(
-        CHAIN_PATH, np.concatenate([u, u + 1]), np.concatenate([u + 1, u]),
-        None))
-    g = bfs_pallas.search_graph(path, dev)
-    max_err = max(max_err, compare_chain(
-        g, g.internal(0), f"path-{CHAIN_PATH} src 0")[2])
+    cases = []
+    for n in (CHAIN_PATH, CHAIN_DEEP):
+        g = bfs_pallas.search_graph(path_graph(n), dev)
+        cases.append((g, g.internal(0), f"path-{n} src 0"))
     for side in (64, 256):
         csr = lattice(side)
         g = bfs_pallas.search_graph(csr, dev)
         src = int(np.argmax(csr.degrees))
-        max_err = max(max_err, compare_chain(
-            g, g.internal(src), f"grid-{side}^2 src {src}")[2])
-    g = bfs_pallas.search_graph(csr14, dev)
-    for which, src in zip(("top-degree", "random"), sources(csr14)):
-        max_err = max(max_err, compare_chain(
-            g, g.internal(src), f"s14 {which} src {src}")[2])
+        cases.append((g, g.internal(src), f"grid-{side}^2 src {src}"))
+    for kind, csr in (("", csr14), (" directed", graph(14, False))):
+        g = bfs_pallas.search_graph(csr, dev)
+        for which, src in zip(("top-degree", "random"), sources(csr)):
+            cases.append((g, g.internal(src), f"s14{kind} {which} src {src}"))
+    for g, psrc, label in cases:
+        for kw in (dict(widths=[1]), dict(map_cap=0)):
+            max_err = max(max_err, compare_chain(
+                g, psrc, label + ", " + ", ".join(
+                    f"{k} {v}" for k, v in kw.items()), **kw)[2])
     side = 1024
     csr = lattice(side)
     t1 = time.perf_counter()
@@ -891,12 +1080,20 @@ def chain_phase(csr14, dev, card):
     reach = g.reach(psrc)
     print(f"  grid-{side}^2 search graph (relabel, CSC, reach) "
           f"{time.perf_counter() - t1:.1f} s", flush=True)
+    widths = []    # the route's measure: the 8-plane loop's level widths
+    g.search(psrc, reach, 8, 255, widths=widths)
+    glob, _, err = compare_chain(g, psrc, f"grid-{side}^2 src {src}, "
+                                          "map_cap 0", map_cap=0)
+    max_err = max(max_err, err)
     ch, (planes, vw, depth), err = compare_chain(
-        g, psrc, f"grid-{side}^2 src {src}")
+        g, psrc, f"grid-{side}^2 src {src}, the widths of its first "
+                 f"{len(widths)} levels (widest {max(widths)}; as the route "
+                 "passes them)", widths=widths)
     max_err = max(max_err, err)
     depth = int(depth)
     st = g.stepper
     k_ms = event_ms(lambda: ch(psrc), lambda: None, 10)
+    g_ms = event_ms(lambda: glob(psrc), lambda: None, 10)
     p_ms = event_ms(lambda: chain.chain_reference(
         st.offsets, st.in_src, psrc, ch.planes, g.rows, st.edge_dst()),
         lambda: None, 1)
@@ -910,14 +1107,15 @@ def chain_phase(csr14, dev, card):
     row = dict(ms=k_ms, plain_ms=p_ms, bytes=nbytes, ops=ops,
                bound_ms=bound_ms(nbytes, ops), depth=depth,
                step_full_ms=step_full_ms, old_route_ms=old_ms,
-               grid_blocks=ch.grid_blocks)
+               global_map_ms=g_ms, layout=chain_layout(ch))
     print(f"  grid-{side}^2 from {src}: {depth} levels; chain kernel "
-          f"{k_ms:.4f} ms ({k_ms * 1e3 / depth:.3f} us per level, grid "
-          f"{ch.grid_blocks} blocks), plain version {p_ms:.1f} ms; "
-          f"step_full (full planes, host loop) {step_full_ms:.4f} ms; "
-          f"old route (8-plane pass, then step_full) {old_ms:.4f} ms; "
-          f"bound {row['bound_ms'] * 1e3:.2f} us ({nbytes} B, bytes) "
-          f"[{card}]", flush=True)
+          f"{k_ms:.4f} ms ({k_ms * 1e3 / depth:.3f} us per level; "
+          f"{row['layout']}; earlier design {EARLIER_MS['chain']} ms), "
+          f"visited map in global memory {g_ms:.4f} ms, plain version "
+          f"{p_ms:.1f} ms; step_full (full planes, host loop) "
+          f"{step_full_ms:.4f} ms; old route (8-plane pass, then "
+          f"step_full) {old_ms:.4f} ms; bound {row['bound_ms'] * 1e3:.2f}"
+          f" us ({nbytes} B, bytes) [{card}]", flush=True)
     done(t0)
     return max_err, row, csr
 
@@ -1372,14 +1570,254 @@ def bc_phase(graphs, card, counts):
     done(t0)
 
 
-def variants(dev, card):
-    """`--variants DIR`: the s20 sweeps of phases 6, 12 and 14 as they
+def path_graph(n):
+    """The undirected path 0 - 1 - ... - (n-1)."""
+    u = np.arange(n - 1, dtype=np.int64)
+    return CsrGraph.from_coo(CooGraph(n, np.concatenate([u, u + 1]),
+                                      np.concatenate([u + 1, u]), None))
+
+
+def chained_levels_ms(g, psrc, depth, reps, **kw):
+    """Device ms of each level of the search from psrc, run `reps` times
+    as the main path runs it: every level from the start frontier, back
+    to back, no host sync, queued behind a device sleep, with CUDA events
+    between levels.  `kw` goes to the step (the direction, where the
+    wrapper has one).  Returns (median ms per level, median ms of the
+    whole search)."""
+    st = g.stepper
+    reach = g.reach(psrc)
+    runs = []
+    for _ in range(reps):
+        fw = g.start(psrc)
+        runs.append(dict(fw=fw, vw=fw.clone(), planes=torch.zeros(
+            (8 * g.rows, 128), dtype=torch.int32, device=fw.device),
+            ev=[torch.cuda.Event(enable_timing=True)
+                for _ in range(depth + 1)]))
+    asleep = torch.cuda.Event()
+    torch.cuda.synchronize()
+    # ~0.5 ms of sleep per queued level: the host queues every launch
+    # before the card wakes (checked below)
+    torch.cuda._sleep(max(100_000_000, 1_000_000 * depth * reps))
+    asleep.record()
+    for r in runs:
+        fw = r["fw"]
+        r["ev"][0].record()
+        for d in range(1, depth + 1):
+            fw, _ = st.step(fw, r["vw"], r["planes"], d, reach, **kw)
+            r["ev"][d].record()
+    if asleep.query():
+        raise AssertionError("the card woke before the levels were queued; "
+                             "their events would hold host gaps")
+    torch.cuda.synchronize()
+    per = [sorted(r["ev"][d - 1].elapsed_time(r["ev"][d]) for r in runs)
+           [reps // 2] for d in range(1, depth + 1)]
+    whole = sorted(r["ev"][0].elapsed_time(r["ev"][depth])
+                   for r in runs)[reps // 2]
+    return per, whole
+
+
+def cube_graph(side):
+    """The undirected 3-D lattice side^3 (6 neighbours): a deep search
+    (3 * (side - 1) levels from a corner) whose middle levels hold ~side^2
+    vertices, the wide-frontier case of the chain kernel."""
+    idx = np.arange(side ** 3, dtype=np.int64)
+    us, vs = [], []
+    for stride in (1, side, side * side):
+        ok = (idx // stride) % side + 1 < side
+        us.append(idx[ok])
+        vs.append(idx[ok] + stride)
+    return CsrGraph.from_coo(CooGraph(side ** 3, np.concatenate(us),
+                                      np.concatenate(vs), None),
+                             undirected=True)
+
+
+def core_tail_graph(csr, tail):
+    """`csr` (undirected) with a path of `tail` new vertices hung on its
+    top-degree vertex: wide levels in the core, then a long thin tail."""
+    n = csr.num_nodes
+    rows = np.repeat(np.arange(n, dtype=np.int64),
+                     np.diff(csr.row_offsets))
+    path = np.arange(n, n + tail, dtype=np.int64)
+    us = np.concatenate([rows, [int(np.argmax(csr.degrees))], path[:-1]])
+    vs = np.concatenate([csr.col_indices.astype(np.int64), path[:1],
+                         path[1:]])
+    return CsrGraph.from_coo(CooGraph(n + tail, us, vs, None),
+                             undirected=True)
+
+
+def level_widths(planes, vw, n_planes, rows, n):
+    """Vertices claimed at each level (index 0: the source) of a search,
+    from its label planes and visited words."""
+    level = torch.zeros(n, dtype=torch.int64, device=planes.device)
+    for b in range(n_planes):
+        level |= unpack_bitmap(planes[b * rows:(b + 1) * rows],
+                               n).long() << b
+    return torch.bincount(level[unpack_bitmap(vw, n)]).cpu().numpy()
+
+
+def host_split(g, psrc, reach, levels, card):
+    """The 8-plane host level loop from psrc (at most `levels` levels),
+    split per level: host time inside the step wrapper, and of it the
+    wrapper's C call (ctypes and the launches; timed by wrapping the
+    module's `_kernel_fn`), the time between CUDA events around the step
+    and the loop's wall time; then the loop's Python functions by their
+    own time (cProfile)."""
+    import cProfile
+    import io
+    import pstats
+    st = g.stepper
+    mod = sys.modules[type(st).__module__]
+    real_fn = mod._kernel_fn
+    c_call = [0.0]
+
+    def timed_fn():
+        fn = real_fn()
+
+        def call(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            c_call[0] += time.perf_counter() - t
+            return out
+        return call
+    fw = g.start(psrc)
+    vw = fw.clone()
+    planes = torch.zeros((8 * g.rows, 128), dtype=torch.int32,
+                         device=fw.device)
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(levels)]
+    host = 0.0
+    mod._kernel_fn = timed_fn
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for d in range(1, levels + 1):
+        evs[d - 1][0].record()
+        t1 = time.perf_counter()
+        fw, n_new = st.step(fw, vw, planes, d, reach)
+        host += time.perf_counter() - t1
+        evs[d - 1][1].record()
+        if int(n_new.item()) == 0:
+            break
+    wall = (time.perf_counter() - t0) * 1e3
+    mod._kernel_fn = real_fn
+    dev = sum(s.elapsed_time(e) for s, e in evs[:d])
+    print(f"  host loop split, {d} levels: wall {wall:.4f} ms "
+          f"({wall * 1e3 / d:.2f} us a level): in the step wrapper "
+          f"{host * 1e6 / d:.2f} us, of which its C call "
+          f"{c_call[0] * 1e6 / d:.2f} us; between the events around the "
+          f"step {dev * 1e3 / d:.2f} us a level [{card}]", flush=True)
+    prof = cProfile.Profile()
+    prof.enable()
+    g.search(psrc, reach, 8, levels)
+    prof.disable()
+    out = io.StringIO()
+    pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(10)
+    rows = [ln for ln in out.getvalue().splitlines()
+            if ln.strip()[:1].isdigit()]
+    for ln in rows[:10]:
+        print(f"    {' '.join(ln.split())}", flush=True)
+
+
+def step_directions(st):
+    """The directions the step wrapper can be forced to take (none
+    before the push/pull design)."""
+    import inspect
+    if "direction" in inspect.signature(st.step).parameters:
+        return ("auto", "push", "pull")
+    return ("as is",)
+
+
+def bfs_variants(csr, dev, card):
+    """`--variants DIR`, the BFS kernels: the step kernel per level
+    (chained as the main path runs it) at rmat-s20 from the top-degree
+    and a random source, and on a level with no candidate (reach & ~vw
+    empty: the launch and the word scan alone); the chain kernel on the
+    2045-vertex path (one vertex a level: the fixed cost of a level) and
+    at grid-1024^2."""
+    for scale, csr_s in ((14, graph(14)), (20, csr)):
+        g = bfs_pallas.search_graph(csr_s, dev)
+        st = g.stepper
+        for which, src in zip(("top-degree", "random"), sources(csr_s)):
+            psrc = g.internal(src)
+            depth = g.search(psrc, g.reach(psrc), 8, g.n)[2]
+            for how in step_directions(st):
+                kw = {} if how == "as is" else dict(direction=how)
+                per, whole = chained_levels_ms(g, psrc, depth, 20, **kw)
+                print(f"  step s{scale} {which} src {src}, {how}: {depth} "
+                      f"levels, search {whole * 1e3:.1f} us (sum of levels "
+                      f"{sum(per) * 1e3:.1f}); per level "
+                      + ", ".join(f"{ms * 1e3:.1f}" for ms in per)
+                      + f" us [{card}]", flush=True)
+    g = bfs_pallas.search_graph(csr, dev)
+    st = g.stepper
+    psrc = g.internal(sources(csr)[0])
+    reach = g.reach(psrc)
+    fw = g.start(psrc)
+    vw = reach | fw
+    planes = torch.zeros((8 * g.rows, 128), dtype=torch.int32, device=dev)
+    for how in step_directions(st):
+        kw = {} if how == "as is" else dict(direction=how)
+        ms = event_ms(lambda: st.step(fw, vw, planes, 1, reach, **kw),
+                      lambda: None, 20)
+        print(f"  step s20, no candidate, {how}: {ms * 1e3:.1f} us "
+              f"[{card}]", flush=True)
+    import inspect
+    layouts = ((("one block", dict(widths=[1])),
+                ("global map", dict(map_cap=0)))
+               if "widths" in inspect.signature(chain.ChainBfs).parameters
+               else (("as is", {}),))
+    for label, csr_c, src in (
+            (f"path-{CHAIN_DEEP}", path_graph(CHAIN_DEEP), 0),
+            ("grid-1024^2", grid_graph(1024), None),
+            ("cube-112^3", cube_graph(112), 0),
+            ("rmat-s18 + tail-400", core_tail_graph(graph(18), 400), None)):
+        if src is None:
+            src = int(np.argmax(csr_c.degrees))
+        gc = bfs_pallas.search_graph(csr_c, dev)
+        psrc = gc.internal(src)
+        if label.startswith("grid"):
+            # the step kernel on a road-like graph: the 8-plane pass that
+            # a deep search's first call runs before it goes deep
+            reach = gc.reach(psrc)
+            loop = wall_ms(lambda: gc.search(psrc, reach, 8, 255), 3)
+            print(f"  step {label} src {src}, 255 levels through the host "
+                  f"level loop: {loop:.4f} ms [{card}]", flush=True)
+            host_split(gc, psrc, reach, 255, card)
+        if len(layouts) > 1:
+            widths = []     # what the route measures before it goes deep
+            gc.search(psrc, gc.reach(psrc), 8, 255, widths=widths)
+            cluster = chain.layout(gc.n_words, chain._smem_limit(), None,
+                                   widths)[0]
+            wide = sum(w > chain.NARROW_LEVEL for w in widths)
+            print(f"  chain {label}: the route passes the widths of "
+                  f"{len(widths)} levels ({wide} wider than "
+                  f"{chain.NARROW_LEVEL}, widest {max(widths)}) and takes "
+                  f"{'one block' if cluster == 1 else 'the global map'}",
+                  flush=True)
+        for name, kw in layouts:
+            ch = chain.ChainBfs(gc, max((gc.n + 1).bit_length(), 1), **kw)
+            planes, vw, depth = ch(psrc)
+            width = level_widths(planes, vw, ch.planes, gc.rows, gc.n)
+            depth = int(depth)
+            ms = event_ms(lambda: ch(psrc), lambda: None, 10)
+            print(f"  chain {label} src {src}, {name}: {depth} levels "
+                  f"(widest {int(width.max())} vertices, mean "
+                  f"{gc.n / max(len(width), 1):.0f}), {ms:.4f} ms "
+                  f"({ms * 1e3 / depth:.3f} us per level) [{card}]",
+                  flush=True)
+
+
+def variants(dev, card, only_bfs=False):
+    """`--variants DIR [bfs]`: the BFS kernels (`bfs_variants`), then,
+    unless `bfs` is given, the s20 sweeps of phases 6, 12 and 14 as they
     are and on the variant inputs, on the kernels of the package
     imported (DIR's)."""
     import gunrockinst_tpu_torch
     print(f"  kernels of {Path(gunrockinst_tpu_torch.__file__).parent}",
           flush=True)
     csr = graph(20)
+    bfs_variants(csr, dev, card)
+    if only_bfs:
+        return 0
     g = bfs_pallas.search_graph(csr, dev)
     rng = np.random.default_rng(SEED + 20)
     for name in VALUE_CONFIGS:
@@ -1421,7 +1859,7 @@ def main() -> int:
     dev = resolve_device(None)
     if sys.argv[1:2] == ["--variants"]:
         t0 = phase("sweep variants")
-        variants(dev, card_line())
+        variants(dev, card_line(), only_bfs=sys.argv[3:4] == ["bfs"])
         done(t0)
         faulthandler.cancel_dump_traceback_later()
         return 0
@@ -1441,18 +1879,28 @@ def main() -> int:
     done(t0, "built")
 
     t0 = phase("3 kernel vs plain version")
-    max_err, timing = 0, None
+    max_err, timing, step_times = 0, None, {}
     csrs = {}
     for scale in (14, 20):
         csr = csrs[scale] = graph(scale)
         g = bfs_pallas.search_graph(csr, dev)
         for which, src in zip(("top-degree", "random"), sources(csr)):
-            levels, reach, err = compare_search(
-                g, g.internal(src), f"s{scale} {which} src {src}")
+            label = f"s{scale} {which} src {src}"
+            levels, reach, err = compare_search(g, g.internal(src), label)
             max_err = max(max_err, err)
+            rows = time_levels(g, levels, reach, g.internal(src), label, card)
+            step_times[label] = sum(r["ms"] for r in rows)
             if scale == 20 and which == "top-degree":
-                timing = time_levels(g, levels, reach)
+                timing = rows
     csr14, csr20 = csrs[14], csrs[20]
+    for label, csr in step_edge_graphs().items():
+        g = bfs_pallas.search_graph(csr, dev)
+        for which, src in zip(("top-degree", "random"), sources(csr)):
+            max_err = max(max_err, compare_search(
+                g, g.internal(src), f"{label} {which} src {src}")[2])
+    g = bfs_pallas.search_graph(csr14, dev)
+    src = sources(csr14)[1]
+    compare_stale_slot(g, g.internal(src), f"s14 random src {src}")
     done(t0)
 
     # ---- the main path: counts from here on --------------------------
@@ -1567,7 +2015,9 @@ def main() -> int:
                   / OPS_PER_S else "operations"),
         library_ms=None, matches_plain=True,
         work="all levels of one rmat-s20 search from the top-degree "
-             "vertex")]
+             "vertex, run as the main path runs it",
+        directions=[r["direction"] for r in timing],
+        ms_by_search=step_times)]
     pr_row = next(r for r in value_rows if r["name"] == "pr")
     line.append(dict(
         name="value_step", **KERNELS["value_step"],
@@ -1594,7 +2044,8 @@ def main() -> int:
              f"({chain_row['depth']} levels)",
         step_full_ms=chain_row["step_full_ms"],
         old_route_ms=chain_row["old_route_ms"],
-        grid_blocks=chain_row["grid_blocks"],
+        layout=chain_row["layout"],
+        global_map_ms=chain_row["global_map_ms"],
         launches_by_path=chain_counts))
     line.append(dict(
         name="touch_sweep", **KERNELS["touch_sweep"],

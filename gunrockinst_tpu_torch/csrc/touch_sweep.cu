@@ -40,7 +40,8 @@
 //     the warps sort the round's words (visited words and offsets loaded
 //     together) into a list of the candidates with an in-edge, then take
 //     32 of them at a time, one a lane.  The 32 lists are walked together
-//     in steps of kStep ids: each open list (ids left, no hit yet) gets
+//     (warp_walk.cuh's walk, which the level step shares) in steps of
+//     kStep ids: each open list (ids left, no hit yet) gets
 //     an equal quota of the step (kStep / open lists, at least 8), the
 //     quotas are laid end to end, and lane l reads positions l, l + 32,
 //     ... of that range, all kUnroll loads in flight before any bit is
@@ -73,6 +74,8 @@
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "warp_walk.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -303,64 +306,29 @@ touch_sweep_kernel(const int32_t* __restrict__ offsets,   // (n+1,) CSC offsets
       const int2 list_next = v_next >= 0           // in flight during this walk
           ? make_int2(__ldg(offsets + v_next), __ldg(offsets + v_next + 1))
           : make_int2(0, 0);
-      int cur = list.x;
       const int end = list.y;
-      const int lim = end - cur > head ? cur + head : end;
-      uint32_t found = 0;
-      uint32_t open = __ballot_sync(kFull, cur < lim);
-      while (open != 0) {               // uniform: same mask in every lane
-        const bool mine = (open >> lane) & 1u;
-        const int quota = kStep / __popc(open);
-        const int len = mine ? min(lim - cur, quota) : 0;
-        int incl = len;                 // inclusive scan of the quotas
+      const int lim = end - list.x > head ? list.x + head : end;
+      const uint32_t found = warp_walk::walk_lists<kUnroll>(
+          in_src, list.x, lim, table,
+          [&] {
+            if (!ready) {               // uniform: the frontier copy landed
+              stage_wait(&bar);
+              ready = true;
+            }
+          },
+          [&](const uint32_t (&ids)[kUnroll], const int (&owner)[kUnroll]) {
+            uint32_t hit = 0;
 #pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const int t = __shfl_up_sync(kFull, incl, off);
-          if (lane >= off) incl += t;
-        }
-        const int total = __shfl_sync(kFull, incl, 31);
-        const int first = incl - len;   // this list's first position
-        if (mine) table[__popc(open & below)] = make_int2(lane, cur - first);
-        __syncwarp();
-        uint32_t ids[kUnroll];
-        int owner[kUnroll];
-        int before = 0;                 // lists that start in earlier windows
-#pragma unroll
-        for (int k = 0; k < kUnroll; ++k) {
-          const int w0 = 32 * k;
-          const uint32_t heads = __reduce_or_sync(
-              kFull, mine && first >= w0 && first < w0 + 32
-                         ? 1u << (first - w0) : 0u);
-          const int p = w0 + lane;
-          owner[k] = -1;
-          ids[k] = 0;
-          if (p < total) {
-            const int2 t = table[before + __popc(heads & upto) - 1];
-            owner[k] = t.x;
-            ids[k] = static_cast<uint32_t>(__ldg(in_src + t.y + p));
-          }
-          before += __popc(heads);
-        }
-        if (!ready) {                   // uniform: the frontier copy landed
-          stage_wait(&bar);
-          ready = true;
-        }
-        uint32_t hit = 0;
-#pragma unroll
-        for (int k = 0; k < kUnroll; ++k) {
-          if (owner[k] >= 0) {
-            const uint32_t w = ids[k] >> 5;
-            const uint32_t x = static_cast<int>(w) < staged ? s_fw[w]
-                                                            : __ldg(fw + w);
-            if ((x >> (ids[k] & 31u)) & 1u) hit |= 1u << owner[k];
-          }
-        }
-        hit = __reduce_or_sync(kFull, hit);
-        found |= hit;
-        cur += len;
-        open = __ballot_sync(kFull, mine && cur < lim && !((hit >> lane) & 1u));
-        __syncwarp();                   // the table is rewritten next step
-      }
+            for (int k = 0; k < kUnroll; ++k) {
+              if (owner[k] >= 0) {
+                const uint32_t w = ids[k] >> 5;
+                const uint32_t x = static_cast<int>(w) < staged
+                                       ? s_fw[w] : __ldg(fw + w);
+                if ((x >> (ids[k] & 31u)) & 1u) hit |= 1u << owner[k];
+              }
+            }
+            return hit;
+          });
       if ((found >> lane) & 1u) {
         atomicOr(touched + ((v >> 5) - blockIdx.x) / stride - r0,
                  1u << (v & 31));

@@ -2,8 +2,10 @@
 
 Each source `csrc/<name>.cu` has a plain C interface and is compiled by
 one `nvcc` call for Hopper (`sm_90a`) into `_build/<name>-<hash>.so`,
-where the hash covers the source text and the flags; the library is
-then loaded with `ctypes`.  Nothing is built when the package is
+where the hash covers the source text, the text of every header it
+includes from `csrc/` (`#include "x.cuh"`, followed through the
+headers' own includes) and the flags; the library is then loaded with
+`ctypes`.  Nothing is built when the package is
 imported: `load` builds at first use, and `build` starts one `nvcc`
 per missing library, all at once.  A build that fails raises with
 nvcc's output.  No source includes PyTorch's headers, so a build takes
@@ -15,17 +17,20 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -43,11 +48,32 @@ def _nvcc() -> str:
     return path
 
 
+def sources_of(name: str) -> List[Path]:
+    """`csrc/<name>.cu` and every header under `csrc/` it includes with
+    `#include "..."`, directly or through another header, in the order
+    first met."""
+    order: List[Path] = []
+    todo = [SRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in order:
+            continue
+        order.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            header = path.parent / inc
+            if not header.exists():
+                raise FileNotFoundError(f"{path.name} includes {inc}, "
+                                        f"which is not in {path.parent}")
+            todo.append(header)
+    return order
+
+
 def library_path(name: str) -> Path:
     """Where the library of `csrc/<name>.cu` goes, named by the hash of
-    its source and the flags."""
-    src = SRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    its source, the headers it includes and the flags."""
+    h = hashlib.sha256()
+    for path in sources_of(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -13,9 +13,11 @@ Two branches, as in the reference's `get_fused_bfs`:
   depth 255 with a frontier left, the search runs again, whole, in one
   launch of the chain kernel (`ops/chain.py`) with `(n+1).bit_length()`
   planes, and every later search of that graph goes to the chain kernel
-  directly, as the reference's `run_impl` does.  This replaces the
-  reference's `lax.while_loop`, its per-level plan choice (`_PlanSet`)
-  and its TPU tile plans.
+  directly, as the reference's `run_impl` does.  The level widths the
+  8-plane loop counted pick the chain kernel's layout.  This replaces the
+  reference's `lax.while_loop` and its TPU tile plans; its per-level
+  plan choice (`_PlanSet`) becomes the step kernel's choice of push or
+  pull, made on the card.
 - **grid-stepped** (`use_mega=False`, `variant` other than "mega", the
   route of `bfs.run(traversal_mode="pallas")`): no relabeling, no reach
   mask, full planes, and a host level loop over the touched sweep
@@ -52,6 +54,15 @@ from gunrockinst_tpu_torch.primitives.base import INF32, Timer, sync
 REACH_CACHE = 64    # per-source reach masks kept on the device
 
 
+def first_candidates(reach_words: np.ndarray, psrc: int) -> int:
+    """The candidates of a search's first level: the vertices of the
+    host reach mask other than the source."""
+    bits = int(np.unpackbits(np.ascontiguousarray(reach_words).view(
+        np.uint8)).sum())
+    word = int(reach_words.reshape(-1)[psrc >> 5]) & 0xffffffff
+    return bits - ((word >> (psrc & 31)) & 1)
+
+
 class SearchGraph:
     """The relabeled graph of one CsrGraph on one device: its CSC on the
     host (`csc`, with the edge values in CSC order) and on the device
@@ -66,7 +77,8 @@ class SearchGraph:
         self.csr_p, self.perm = relabeled(csr)
         self.csc = self.csr_p.transposed()
         self.stepper = MegaStepper(self.csc.row_offsets,
-                                   self.csc.col_indices, device)
+                                   self.csc.col_indices, device,
+                                   out_edges=self.reverse)
         self.rows = self.stepper.rows
         self.n_words = self.stepper.n_words
         self._reach = {}
@@ -124,12 +136,18 @@ class SearchGraph:
         return self._reverse
 
     def reach(self, psrc: int) -> torch.Tensor:
+        return self._reach_of(psrc)[0]
+
+    def _reach_of(self, psrc: int) -> Tuple[torch.Tensor, int]:
+        """(the reach mask of psrc on the device, its candidates at the
+        first level: the reach vertices other than psrc)."""
         hit = self._reach.get(psrc)
         if hit is None:
             if len(self._reach) >= REACH_CACHE:
                 self._reach.clear()
-            hit = torch.from_numpy(reach_words_for(
-                self.csr_p, psrc, self.n_words)).to(self.device)
+            words = reach_words_for(self.csr_p, psrc, self.n_words)
+            hit = (torch.from_numpy(words).to(self.device),
+                   first_candidates(words, psrc))
             self._reach[psrc] = hit
         return hit
 
@@ -151,17 +169,26 @@ class SearchGraph:
         preds = torch.where(preds == INF32, -1, preds)
         return self.to_input(preds).cpu().numpy()
 
-    def start(self, psrc: int) -> torch.Tensor:
-        """The word map holding only vertex `psrc`."""
-        return start_words(psrc, self.rows, self.device)
+    def start(self, psrc: int, candidates: Optional[int] = None
+              ) -> torch.Tensor:
+        """The word map holding only vertex `psrc`, made by the step
+        kernel's `MegaStepper.start` with the first level's candidate
+        count (`candidates`, else that of psrc's cached reach mask, if
+        any), so that the first level needs no stats pass."""
+        if candidates is None and psrc in self._reach:
+            candidates = self._reach[psrc][1]
+        return self.stepper.start(psrc, candidates)
 
     def search(self, psrc: int, reach: torch.Tensor, n_planes: int,
-               cap_depth: int):
+               cap_depth: int, candidates: Optional[int] = None,
+               widths: Optional[list] = None):
         """Levels 1, 2, ... from `psrc` until the frontier is empty or
         `cap_depth` levels ran.  Returns (planes, visited words, depth,
         cont); depth counts the last, empty level, and cont is True
-        when the cap stopped the search."""
-        fw = self.start(psrc)
+        when the cap stopped the search.  `candidates`: see `start`.
+        Each level's count of new vertices is appended to `widths`, if
+        given."""
+        fw = self.start(psrc, candidates)
         vw = fw.clone()
         planes = torch.zeros((n_planes * self.rows, 128),
                              dtype=torch.int32, device=self.device)
@@ -169,7 +196,10 @@ class SearchGraph:
         while cont and depth < cap_depth:
             depth += 1
             fw, n_new = self.stepper.step(fw, vw, planes, depth, reach)
-            cont = int(n_new.item()) > 0
+            count = int(n_new.item())
+            if widths is not None:
+                widths.append(count)
+            cont = count > 0
         return planes, vw, depth, cont
 
 
@@ -236,12 +266,16 @@ class _FusedBfs:
         self.went_deep = False
         self.route = ""
         self._chain = None
+        self._widths = []   # new vertices a level of the deep search
 
     def chain(self) -> ChainBfs:
-        """The chain kernel with full planes, built at first use; a
-        build or launch failure raises (no fallback)."""
+        """The chain kernel with full planes, built at first use with
+        the level widths the 8-plane search counted (they pick the
+        kernel's layout); a build or launch failure raises (no
+        fallback)."""
         if self._chain is None:
-            self._chain = ChainBfs(self.g, self.planes_full)
+            self._chain = ChainBfs(self.g, self.planes_full,
+                                   widths=self._widths)
         return self._chain
 
     def __call__(self, src: int) -> Tuple[np.ndarray, int, float]:
@@ -252,8 +286,10 @@ class _FusedBfs:
         with Timer() as t:
             if not self.went_deep:
                 n_planes = min(8, self.planes_full)
+                self._widths = []
                 planes, vw, depth, cont = g.search(
-                    psrc, reach, n_planes, min(g.n, (1 << n_planes) - 1))
+                    psrc, reach, n_planes, min(g.n, (1 << n_planes) - 1),
+                    widths=self._widths)
                 self.route = "step8"
                 if cont and self.planes_full > n_planes:
                     self.went_deep = True
@@ -361,14 +397,14 @@ def get_fused_bfs_multi(csr: CsrGraph, reps: int = 8, planes: int = 8,
             raise ValueError(f"expected {reps} sources, got shape "
                              f"{srcs.shape}")
         psrcs = [g.internal(s) for s in srcs]
-        reach = torch.from_numpy(np.stack(
-            [reach_words_for(g.csr_p, p, g.n_words) for p in psrcs]
-        )).to(dev)
+        words = [reach_words_for(g.csr_p, p, g.n_words) for p in psrcs]
+        cands = [first_candidates(w, p) for w, p in zip(words, psrcs)]
+        reach = torch.from_numpy(np.stack(words)).to(dev)
         sync(dev)
         with Timer() as t:
             depths, vws = [], []
             for i, p in enumerate(psrcs):
-                _, vw, depth, _ = g.search(p, reach[i], planes, n)
+                _, vw, depth, _ = g.search(p, reach[i], planes, n, cands[i])
                 depths.append(depth)
                 vws.append(vw)
             sync(dev)

@@ -145,3 +145,95 @@ def test_fused_deep_search_takes_chain_route(monkeypatch):
     res = bfs.run(port, 599, device="cpu")
     assert res.stats.route == "chain"
     np.testing.assert_array_equal(res.labels, bfs_reference(port, 599)[0])
+
+
+@pytest.mark.parametrize("n_words,limit,widths", [
+    (-1, 1024, None),
+    (128, -1, None),
+    (128, 1024, [3, -1]),
+])
+def test_layout_rejects_bad_arguments(n_words, limit, widths):
+    with pytest.raises(ValueError):
+        chain.layout(n_words, limit, None, widths)
+
+
+@pytest.mark.parametrize("cap", [-1, True, 1.5, "0"])
+def test_chain_rejects_bad_map_cap(cap):
+    g = bfs_pallas.search_graph(_port_of(_path(10)), CPU)
+    with pytest.raises(ValueError):
+        chain.ChainBfs(g, 4, map_cap=cap)
+
+
+@pytest.mark.parametrize("widths", [[-1], [True], [1.5], "9", [2, None]])
+def test_chain_rejects_bad_widths(widths):
+    g = bfs_pallas.search_graph(_port_of(_path(10)), CPU)
+    with pytest.raises(ValueError):
+        chain.ChainBfs(g, 4, widths=widths)
+
+
+def test_chain_map_cap_keeps_the_result():
+    """The cap changes where the kernel keeps its visited map, never the
+    search: on the CPU both run the plain version, bit for bit."""
+    g = bfs_pallas.search_graph(_port_of(_path(50)), CPU)
+    whole = chain.ChainBfs(g, 6, widths=[1])(7)
+    capped = chain.ChainBfs(g, 6, map_cap=0, widths=[1])(7)
+    wide = chain.ChainBfs(g, 6)(7)
+    for a, b, c in zip(whole, capped, wide):
+        assert torch.equal(a, b)
+        assert torch.equal(a, c)
+
+
+N = chain.NARROW_LEVEL
+S = chain.WIDE_SHARE
+ROAD = [258] * 255            # grid-1024^2's first levels stay narrow
+
+
+@pytest.mark.parametrize("n_words,limit,cap,widths,want", [
+    (33792, 232432, None, ROAD, (1, 8192)),   # grid-1024^2: one block, 132 KB
+    (33792, 232432, None, None, (8, 8192)),   # widths unknown: global map
+    (33792, 232432, None, [], (8, 8192)),     # ... or none counted
+    (33792, 232432, None, [N] * 255, (1, 8192)),   # narrow at the limit
+    (33792, 232432, None, [N + 1] + [1] * (S - 1), (1, 8192)),  # 1 in S wide
+    (33792, 232432, None, [N + 1] * 2 + [1] * (S - 1), (8, 8192)),  # more
+    (41472, 232432, None, [1] * 63 + [9000] * 192, (8, 8192)),  # a 3-D lattice
+    (41472, 232432, None, [64000, 138543, 3] + [1] * 252, (1, 8192)),  # core, tail
+    (32768, 232432, None, [1], (1, 8192)),    # a path
+    (56832, 232432, None, [1], (1, 638)),     # 1.8 M vertices: the map fills it
+    (58112, 232432, None, [1], (8, 8192)),    # 1.86 M vertices: too big
+    (33792, 232432, 0, ROAD, (8, 8192)),      # the cap forces global memory
+    (33792, 232432, 135168, ROAD, (1, 8192)),   # a cap the map just fits
+    (33792, 232432, 135167, ROAD, (8, 8192)),   # ... and one byte short of it
+    (33792, 40000, None, ROAD, (8, 5000)),    # a card with less shared memory
+    (1 << 20, 232432, None, [1], (8, 8192)),  # 32 M vertices
+    (128, 232432, None, [0], (1, 8192)),
+    (128, 520, None, [0], (1, 1)),
+    (128, 0, None, [0], (8, 0)),              # no shared memory at all
+    (0, 232432, None, [0], (8, 8192)),        # no word: nothing to hold
+])
+def test_layout_takes_one_block_or_global_memory(n_words, limit, cap,
+                                                 widths, want):
+    """A narrow search (its level widths known, at most one level in
+    WIDE_SHARE wider than NARROW_LEVEL vertices) runs on one block with
+    the visited map in its shared memory when the map fits the card's
+    limit and the cap; any other on GLOBAL_CLUSTER blocks with the map
+    in global memory.  The rest of a block's shared memory holds up to
+    LIST_CAP entries of each frontier list."""
+    assert chain.layout(n_words, limit, cap, widths) == want
+
+
+def test_deep_route_passes_the_level_widths(monkeypatch):
+    """The BFS route builds its chain kernel with the new vertices of
+    each level its 8-plane host loop counted."""
+    seen = {}
+    real = chain.ChainBfs
+
+    def spy(g, planes, map_cap=None, widths=None):
+        seen["widths"] = list(widths)
+        return real(g, planes, map_cap, widths)
+
+    monkeypatch.setattr(bfs_pallas, "ChainBfs", spy)
+    port = _port_of(_path(600))
+    fn = bfs_pallas.get_fused_bfs(port, device="cpu")
+    fn(0)
+    assert fn.route == "chain"
+    assert seen["widths"] == [1] * 255   # a path from its end: one a level
