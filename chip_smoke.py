@@ -133,6 +133,41 @@ rmat-s20 ef16, seed 42, whose reverse CSC is a second upload:
                1e-6), sigma equal below 2^24 and allclose (rtol 1e-6)
                above, two calls bitwise equal.
 
+Phases 19-23 drive the default modes, the operator layer on a padded
+DeviceGraph (ops/advance.py, segment.py, frontier.py, priority.py), on
+the same graphs; in each entry-point call no hand-written kernel may
+launch (every launch counter is zeroed before it and must read 0
+after it):
+
+ 19. bfs xla - bfs.run(csr, top-degree src) at rmat-s20 undirected with
+               traversal_mode "dense", "sparse" and "auto" with
+               max_depth=3: labels and preds equal the NumPy oracle's
+               (cut at depth 3 for the last) and phase 4's; one
+               bfs_dense search profiled for the card's idle share;
+ 20. sssp xla - sssp.run with mode "sparse" (the default), "delta" and
+               "bellman" at rmat-s20, unweighted and with phase 7's
+               weights 1..63: distances equal scipy's Dijkstra and phase
+               7's planes distances bit for bit; preds of each mode at
+               rmat-s14 equal the oracle's; one unweighted sparse search
+               profiled for the card's idle share;
+ 21. cc xla  - cc.run(csr) at rmat-s20: ids equal each scipy component's
+               minimum id;
+ 22. rank xla - pr.run(max_iter=5) on the undirected graph, hits.run and
+               salsa.run (max_iter=10) and wtf.run(cot_size=1000) on
+               both s20 graphs: held to their oracles with phases 9 and
+               15-17's tolerances; PR, HITS and SALSA bitwise equal on
+               two calls;
+ 23. bc xla  - bc.run(src=top-degree) on both s20 graphs, held as phase
+               18 holds it, two calls bitwise equal; bc.run(csr14) with
+               every source (the default) allclose (rtol 1e-4, atol
+               1e-6) to the all-sources Brandes oracle `bc_all_dense`
+               (bc_reference's arithmetic in float64, every source at
+               once as dense matrix products on the card).
+
+Each entry point of phases 19-23 reports the host clock of its timed
+call, after a warm-up call and ended by torch.cuda.synchronize(); these
+windows are not in the kernels line.
+
 Launch counts of the BFS kernel are zeroed just before phase 4 and read
 just after phase 5; those of the value kernel are zeroed just before
 and read just after each entry-point call of phases 7-9 (sssp, sssp
@@ -204,6 +239,7 @@ that time over the call's wall time.
 
 from __future__ import annotations
 
+import contextlib
 import faulthandler
 import json
 import subprocess
@@ -235,6 +271,7 @@ from gunrockinst_tpu_torch.oracles import (bc_reference_fast,
                                            wtf_reference)
 from gunrockinst_tpu_torch.primitives import (bc, bfs, bfs_pallas, cc, hits,
                                               pr, salsa, sssp, wtf)
+from gunrockinst_tpu_torch.primitives.base import device_graph
 
 WATCHDOG_S = 1100          # under the 1200 s limit of a smoke run
 HBM_BYTES_PER_S = 3.35e12
@@ -883,14 +920,17 @@ def value_phase(csrs, dev, card):
 def sssp_phase(csr20, csr14, dev, card, counts):
     """Phase 7: SSSP at rmat-s20, unweighted and weighted, against
     scipy; preds at rmat-s14 against the oracle.  Puts the value
-    kernel's launches of each s20 sssp.run into `counts`."""
+    kernel's launches of each s20 sssp.run into `counts`.  Returns
+    {graph kind: (graph, planes distances, scipy's)} for phase 20."""
     t0 = phase("7 sssp.run planes, rmat-s20")
     src = sources(csr20)[0]
     m = csr20.num_edges
     value.launches = 0
     res = sssp.run(csr20, src, mode="planes", mark_preds=False)
     counts["sssp"] = value.launches
-    if not np.array_equal(res.dist, scipy_dist(csr20, src)):
+    want = scipy_dist(csr20, src)
+    planes = {"unweighted": (csr20, res.dist, want)}
+    if not np.array_equal(res.dist, want):
         raise AssertionError("sssp distances differ from scipy's Dijkstra")
     ms = res.stats.elapsed_ms
     fn = sssp.get_sssp_planes(csr20, dev)
@@ -911,7 +951,9 @@ def sssp_phase(csr20, csr14, dev, card, counts):
     value.launches = 0
     res = sssp.run(wcsr, src, mode="planes", mark_preds=False)
     counts["sssp weighted"] = value.launches
-    if not np.array_equal(res.dist, scipy_dist(wcsr, src)):
+    want = scipy_dist(wcsr, src)
+    planes["weights 1..63"] = (wcsr, res.dist, want)
+    if not np.array_equal(res.dist, want):
         raise AssertionError("weighted sssp distances differ from scipy's "
                              "Dijkstra")
     ms = res.stats.elapsed_ms
@@ -928,6 +970,7 @@ def sssp_phase(csr20, csr14, dev, card, counts):
     print("  rmat-s14 with preds: distances and preds equal the oracle",
           flush=True)
     done(t0)
+    return planes
 
 
 def cc_phase(csr20, card, counts):
@@ -1484,7 +1527,9 @@ def close(what, got, want, rtol, atol=1e-6):
 def hits_salsa_phase(graphs, card, counts):
     """Phase 16: HITS and SALSA planes on both s20 graphs against the
     NumPy oracles, each call with the value kernel's launches in its
-    own window (into `counts`)."""
+    own window (into `counts`).  Returns {kind: (hits oracle, salsa
+    oracle)} for phase 22."""
+    refs = {}
     t0 = phase(f"16 hits.run and salsa.run planes max_iter={RANK_ITERS}, "
                f"rmat-s20")
     for kind, csr in graphs.items():
@@ -1500,19 +1545,24 @@ def hits_salsa_phase(graphs, card, counts):
         value.launches = 0
         res = salsa.run(csr, max_iter=RANK_ITERS, mode="planes")
         counts[f"salsa {kind}"] = value.launches
-        hub, auth = salsa_reference(csr, max_iter=RANK_ITERS)
+        salsa_ref = salsa_reference(csr, max_iter=RANK_ITERS)
+        refs[kind] = ((hub, auth), salsa_ref)
+        hub, auth = salsa_ref
         close(f"{kind} salsa hub ranks", res.hub_ranks, hub, 1e-4)
         close(f"{kind} salsa auth ranks", res.auth_ranks, auth, 1e-4)
         print(f"  {kind} salsa: allclose; {res.stats.elapsed_ms:.3f} ms "
               f"[{card}]", flush=True)
     done(t0)
+    return refs
 
 
 def wtf_phase(graphs, card, counts):
     """Phase 17: WTF planes on both s20 graphs, checked as the JAX
     package's tests check it: PPR allclose, the circle of trust
     score-equivalent per position, the ranks allclose to the oracle
-    pinned to the port's circle."""
+    pinned to the port's circle.  Returns {kind: (the port's circle,
+    the pinned oracle ranks, the oracle's PPR)} for phase 22."""
+    refs = {}
     t0 = phase(f"17 wtf.run planes cot_size={COT_SIZE}, rmat-s20")
     for kind, csr in graphs.items():
         src = sources(csr)[0]
@@ -1521,6 +1571,7 @@ def wtf_phase(graphs, card, counts):
         counts[f"wtf {kind}"] = value.launches
         pinned, _, ppr = wtf_reference(csr, src, cot_size=COT_SIZE,
                                        cot=res.cot)
+        refs[kind] = (res.cot, pinned, ppr)
         cot = np.lexsort((np.arange(csr.num_nodes), -ppr))[:COT_SIZE]
         close(f"{kind} wtf ppr ranks", res.ppr_ranks, ppr, 1e-3)
         close(f"{kind} wtf circle-of-trust scores", ppr[res.cot], ppr[cot],
@@ -1532,11 +1583,14 @@ def wtf_phase(graphs, card, counts):
               f"{res.stats.elapsed_ms:.3f} ms ({phases}) [{card}]",
               flush=True)
     done(t0)
+    return refs
 
 
 def bc_phase(graphs, card, counts):
     """Phase 18: single-source BC planes on both s20 graphs, twice,
-    against bc_reference_fast."""
+    against bc_reference_fast.  Returns {kind: the oracle's (values,
+    sigma, labels)} for phase 23."""
+    refs = {}
     t0 = phase("18 bc.run planes, rmat-s20")
     for kind, csr in graphs.items():
         src = sources(csr)[0]
@@ -1550,7 +1604,8 @@ def bc_phase(graphs, card, counts):
             if not np.array_equal(a.view(np.int32), b.view(np.int32)):
                 raise AssertionError(f"{kind}: two bc.run calls give "
                                      f"different {what}")
-        want_bc, want_sigma, want_labels = bc_reference_fast(csr, src)
+        want_bc, want_sigma, want_labels = refs[kind] = \
+            bc_reference_fast(csr, src)
         if not np.array_equal(np.where(res.labels == INF32, -1,
                                        res.labels), want_labels):
             raise AssertionError(f"{kind}: bc labels differ from the "
@@ -1567,6 +1622,286 @@ def bc_phase(graphs, card, counts):
               f"depth {res.stats.search_depth}, "
               f"{res.stats.elapsed_ms:.3f} ms, {again.stats.elapsed_ms:.3f}"
               f" ms; two calls bitwise equal [{card}]", flush=True)
+    done(t0)
+    return refs
+
+
+# ---- phases 19-23: the operator layer (the default modes) -----------------
+
+KERNEL_MODULES = {"mega_step": mega, "value_step": value,
+                  "chain_bfs": chain, "touch_sweep": pull, "spmv": spmv}
+
+
+@contextlib.contextmanager
+def no_kernel_launch(what):
+    """A window in which the hand-written kernels must not launch: the
+    default modes run the operator layer alone."""
+    for mod in KERNEL_MODULES.values():
+        mod.launches = 0
+    yield
+    launched = {k: mod.launches for k, mod in KERNEL_MODULES.items()
+                if mod.launches}
+    if launched:
+        raise AssertionError(f"{what}: hand-written kernels launched "
+                             f"{launched}")
+
+
+def device_busy_ms(call):
+    """The card's kernel time in one `call`, from torch.profiler, or
+    None where the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 if total > 0 else None
+
+
+def idle_line(what, call):
+    """"<what> x ms; card busy y ms, idle z% of the call": the host
+    clock of one `call` ended by a sync, then the card's kernel time in
+    one more, profiled."""
+    t1 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t1) * 1e3
+    busy = device_busy_ms(call)
+    if busy is None:
+        return (f"{what} {wall:.3f} ms; card idle not measured (no device"
+                " time in the trace)")
+    return (f"{what} {wall:.3f} ms; card busy {busy:.3f} ms, idle "
+            f"{100 * (1 - busy / wall):.2f}% of the call")
+
+
+def bfs_xla_phase(csr20, src, ref_labels, ref_preds, mega_res, card):
+    """Phase 19: bfs.run dense, sparse and auto with max_depth=3 at
+    rmat-s20: labels and preds equal the oracle's (cut at depth 3 for
+    the last) and phase 4's."""
+    t0 = phase("19 bfs.run dense, sparse, auto max_depth=3, rmat-s20")
+    cut = ref_labels <= 3
+    for mode, depth in (("dense", None), ("sparse", None), ("auto", 3)):
+        with no_kernel_launch(f"bfs {mode}"):
+            res = bfs.run(csr20, src, traversal_mode=mode, max_depth=depth)
+        want_l, want_p = ref_labels, ref_preds
+        if depth is not None:
+            want_l = np.where(cut, ref_labels, INF32)
+            want_p = np.where(cut, ref_preds, -1)
+        if not (np.array_equal(res.labels, want_l)
+                and np.array_equal(res.preds, want_p)):
+            raise AssertionError(f"bfs {mode}: labels or preds differ from "
+                                 "the oracle")
+        if depth is None and not (
+                np.array_equal(res.labels, mega_res.labels)
+                and np.array_equal(res.preds, mega_res.preds)):
+            raise AssertionError(f"bfs {mode}: labels or preds differ from "
+                                 "phase 4's")
+        ms = res.stats.elapsed_ms
+        print(f"  {mode}{'' if depth is None else f' max_depth={depth}'}: "
+              f"exact; depth {res.stats.search_depth}, total_queued "
+              f"{res.stats.total_queued}, {ms:.3f} ms, "
+              f"{res.stats.edges_visited / (ms * 1e6):.4f} GTEPS [{card}]",
+              flush=True)
+    g = device_graph(csr20, resolve_device(None))
+    print(f"  {idle_line('bfs_dense search', lambda: bfs.bfs_dense(g, src))}"
+          f" [{card}]", flush=True)
+    done(t0)
+
+
+def sssp_xla_phase(planes, csr14, card):
+    """Phase 20: sssp.run sparse (the default), delta and bellman at
+    rmat-s20, unweighted and with weights 1..63: distances equal
+    scipy's Dijkstra bit for bit and phase 7's planes distances; preds
+    at rmat-s14 equal the oracle's."""
+    t0 = phase("20 sssp.run sparse, delta, bellman, rmat-s20")
+    for kind, (csr, planes_dist, want) in planes.items():
+        src = sources(csr)[0]
+        for mode in ("sparse", "delta", "bellman"):
+            with no_kernel_launch(f"sssp {mode}"):
+                res = sssp.run(csr, src, mode=mode, mark_preds=False)
+            if not (np.array_equal(res.dist, want)
+                    and np.array_equal(res.dist, planes_dist)):
+                raise AssertionError(f"sssp {mode} {kind}: distances differ"
+                                     " from scipy's or phase 7's")
+            ms = res.stats.elapsed_ms
+            print(f"  {kind} {mode}: exact vs scipy and planes; "
+                  f"{res.stats.search_depth} rounds, {ms:.3f} ms "
+                  f"[{card}]", flush=True)
+    src14 = sources(csr14)[0]
+    ref_dist, ref_preds = sssp_reference(csr14, src14)
+    for mode in ("sparse", "delta", "bellman"):
+        with no_kernel_launch(f"sssp {mode} s14"):
+            res = sssp.run(csr14, src14, mode=mode)
+        if not (np.array_equal(res.dist, ref_dist)
+                and np.array_equal(res.preds, ref_preds)):
+            raise AssertionError(f"rmat-s14 sssp {mode}: distances or preds "
+                                 "differ from the oracle")
+    print("  rmat-s14 with preds, each mode: equal to the oracle",
+          flush=True)
+    csr20 = planes["unweighted"][0]
+    g = device_graph(csr20, resolve_device(None))
+    src = sources(csr20)[0]
+    line = idle_line("sssp_kernel sparse, unweighted",
+                     lambda: sssp.sssp_kernel(g, src, 1.0, mode="sparse"))
+    print(f"  {line} [{card}]", flush=True)
+    done(t0)
+
+
+def cc_xla_phase(csr20, card):
+    """Phase 21: cc.run (mode "xla") at rmat-s20 against scipy."""
+    t0 = phase("21 cc.run xla, rmat-s20")
+    with no_kernel_launch("cc xla"):
+        res = cc.run(csr20)
+    if not np.array_equal(res.component_ids, scipy_components(csr20)):
+        raise AssertionError("cc xla component ids differ from scipy's")
+    ms = res.stats.elapsed_ms
+    print(f"  exact vs scipy; {res.num_components} components, "
+          f"{res.stats.search_depth} rounds, {ms:.3f} ms [{card}]",
+          flush=True)
+    done(t0)
+
+
+def rank_xla_phase(graphs, pr_ref, rank_refs, wtf_refs, card):
+    """Phase 22: pr.run(max_iter=5) on the undirected graph, hits.run
+    and salsa.run (max_iter=10) and wtf.run(cot_size=1000) on both s20
+    graphs, mode "xla": each held to its oracle with phases 9 and
+    15-17's tolerances (the oracles' values those phases computed); PR,
+    HITS and SALSA bitwise equal on two calls."""
+    t0 = phase("22 pr, hits, salsa, wtf xla, rmat-s20")
+
+    def twice(what, call, arrays):
+        with no_kernel_launch(what):
+            res, again = call(), call()
+        for a, b in zip(arrays(res), arrays(again)):
+            if not np.array_equal(a.view(np.int32), b.view(np.int32)):
+                raise AssertionError(f"{what}: two calls differ")
+        return res, again
+
+    res, again = twice("pr xla", lambda: pr.run(graphs["undirected"],
+                                                max_iter=PR_ITERS),
+                       lambda r: (r.ranks,))
+    close("pr xla ranks", res.ranks, pr_ref, 1e-4)
+    print(f"  undirected pr: allclose, two calls bitwise equal; "
+          f"{res.stats.search_depth} iterations, "
+          f"{res.stats.elapsed_ms:.3f} ms, {again.stats.elapsed_ms:.3f} ms "
+          f"[{card}]", flush=True)
+    for kind, csr in graphs.items():
+        src = sources(csr)[0]
+        res, again = twice(f"hits xla {kind}", lambda: hits.run(
+            csr, src=src, max_iter=RANK_ITERS),
+            lambda r: (r.hub_ranks, r.auth_ranks))
+        (hub, auth), salsa_ref = rank_refs[kind]
+        close(f"{kind} hits xla hub ranks", res.hub_ranks, hub, 1e-4)
+        close(f"{kind} hits xla auth ranks", res.auth_ranks, auth, 1e-4)
+        print(f"  {kind} hits from {src}: allclose, two calls bitwise "
+              f"equal; {res.stats.elapsed_ms:.3f} ms [{card}]", flush=True)
+        res, again = twice(f"salsa xla {kind}", lambda: salsa.run(
+            csr, max_iter=RANK_ITERS), lambda r: (r.hub_ranks, r.auth_ranks))
+        hub, auth = salsa_ref
+        close(f"{kind} salsa xla hub ranks", res.hub_ranks, hub, 1e-4)
+        close(f"{kind} salsa xla auth ranks", res.auth_ranks, auth, 1e-4)
+        print(f"  {kind} salsa: allclose, two calls bitwise equal; "
+              f"{res.stats.elapsed_ms:.3f} ms [{card}]", flush=True)
+        with no_kernel_launch(f"wtf xla {kind}"):
+            res = wtf.run(csr, src=src, cot_size=COT_SIZE)
+        planes_cot, pinned, ppr = wtf_refs[kind]
+        moved = int((res.cot != planes_cot).sum())
+        if moved:           # the oracle pinned to this circle instead
+            pinned = wtf_reference(csr, src, cot_size=COT_SIZE,
+                                   cot=res.cot)[0]
+        cot = np.lexsort((np.arange(csr.num_nodes), -ppr))[:COT_SIZE]
+        close(f"{kind} wtf xla ppr ranks", res.ppr_ranks, ppr, 1e-3)
+        close(f"{kind} wtf xla circle-of-trust scores", ppr[res.cot],
+              ppr[cot], 1e-3)
+        close(f"{kind} wtf xla ranks", res.wtf_ranks, pinned, 1e-3)
+        phases = ", ".join(f"{k} {v:.3f}" if isinstance(v, float)
+                           else f"{k} {v}" for k, v in res.phases.items())
+        print(f"  {kind} wtf from {src}: allclose ({moved} circle "
+              f"positions differ from phase 17's); "
+              f"{res.stats.elapsed_ms:.3f} ms ({phases}) [{card}]",
+              flush=True)
+    done(t0)
+
+
+def bc_all_dense(csr, dev):
+    """All-sources Brandes BC of `csr`, halved, as bc_reference gives
+    it, in float64 with every source at once on dense (n, n) matrices:
+    row s of sigma counts the shortest paths from s, and each level's
+    path counts and dependencies are one matrix product with the
+    adjacency matrix.  Independent of the sparse code under test."""
+    n = csr.num_nodes
+    f64 = dict(dtype=torch.float64, device=dev)
+    adj = torch.zeros((n, n), **f64)
+    rows = np.repeat(np.arange(n), csr.degrees)
+    adj[torch.from_numpy(rows).to(dev),
+        torch.from_numpy(csr.col_indices.astype(np.int64)).to(dev)] = 1.0
+    sigma = torch.eye(n, **f64)
+    front = sigma > 0
+    seen, levels = front.clone(), [front]
+    while True:
+        paths = (sigma * front) @ adj
+        front = (paths > 0) & ~seen
+        if not bool(front.any()):
+            break
+        sigma = torch.where(front, paths, sigma)
+        seen |= front
+        levels.append(front)
+    delta = torch.zeros((n, n), **f64)
+    inv = torch.where(sigma > 0, 1.0 / sigma, 0.0)
+    for d in range(len(levels) - 1, 0, -1):
+        child = torch.where(levels[d], (1.0 + delta) * inv, 0.0)
+        delta += torch.where(levels[d - 1], sigma * (child @ adj.T), 0.0)
+    delta.fill_diagonal_(0.0)
+    return (delta.sum(dim=0) * 0.5).cpu().numpy().astype(np.float32)
+
+
+def bc_xla_phase(graphs, bc_refs, csr14, card):
+    """Phase 23: bc.run(src=top-degree) (mode "xla") on both s20 graphs,
+    held as phase 18 holds it (against the oracle values phase 18
+    computed), two calls bitwise equal; then bc.run at rmat-s14 with
+    every source (the default) against the all-sources Brandes oracle
+    (rtol 1e-4, atol 1e-6)."""
+    t0 = phase("23 bc.run xla, rmat-s20 one source, rmat-s14 all sources")
+    for kind, csr in graphs.items():
+        src = sources(csr)[0]
+        with no_kernel_launch(f"bc xla {kind}"):
+            res, again = bc.run(csr, src=src), bc.run(csr, src=src)
+        for what, a, b in (("values", res.bc_values, again.bc_values),
+                           ("sigmas", res.sigmas, again.sigmas),
+                           ("labels", res.labels, again.labels)):
+            if not np.array_equal(a.view(np.int32), b.view(np.int32)):
+                raise AssertionError(f"{kind}: two bc.run xla calls give "
+                                     f"different {what}")
+        want_bc, want_sigma, want_labels = bc_refs[kind]
+        if not np.array_equal(np.where(res.labels == INF32, -1,
+                                       res.labels), want_labels):
+            raise AssertionError(f"{kind}: bc xla labels differ from the "
+                                 "oracle's")
+        close(f"{kind} bc xla values", res.bc_values, want_bc, 1e-4)
+        exact = want_sigma < 2**24
+        if not np.array_equal(res.sigmas[exact], want_sigma[exact]):
+            raise AssertionError(f"{kind}: bc xla sigmas below 2^24 differ "
+                                 "from the oracle's")
+        close(f"{kind} bc xla sigmas above 2^24", res.sigmas[~exact],
+              want_sigma[~exact], 1e-6, 0.0)
+        print(f"  {kind} bc from {src}: labels exact, values allclose, "
+              f"two calls bitwise equal; depth {res.stats.search_depth}, "
+              f"{res.stats.elapsed_ms:.3f} ms, {again.stats.elapsed_ms:.3f}"
+              f" ms [{card}]", flush=True)
+    g = device_graph(csr14, resolve_device(None))
+    k = bc.auto_batch(g)
+    with no_kernel_launch("bc xla all sources"):
+        res = bc.run(csr14)
+    t1 = time.perf_counter()
+    want = bc_all_dense(csr14, g.device)
+    oracle_s = time.perf_counter() - t1
+    close("rmat-s14 all-sources bc xla values", res.bc_values, want, 1e-4)
+    print(f"  rmat-s14 all {csr14.num_nodes} sources, batch {k}: allclose "
+          f"to the oracle (max |diff| "
+          f"{float(np.abs(res.bc_values - want).max()):.3g}; oracle "
+          f"{oracle_s:.1f} s); depth {res.stats.search_depth}, "
+          f"{res.stats.elapsed_ms:.3f} ms [{card}]", flush=True)
     done(t0)
 
 
@@ -1966,7 +2301,7 @@ def main() -> int:
 
     # ---- the value-plane paths: one count window per entry point -----
     by_path = {}
-    sssp_phase(csr20, csr14, dev, card, by_path)
+    sssp_planes = sssp_phase(csr20, csr14, dev, card, by_path)
     cc_phase(csr20, card, by_path)
     planes_ranks, pr_ref = pr_phase(csr20, card, by_path)
     # ---- end of the value-plane paths (more in phases 16-18) ---------
@@ -1992,12 +2327,18 @@ def main() -> int:
     launches["spmv"] = sum(spmv_counts.values())
     # ---- end of the pull-SpMV path -----------------------------------
     # ---- the link-analysis paths: one value count window per call ----
-    hits_salsa_phase(graphs, card, by_path)
-    wtf_phase(graphs, card, by_path)
-    bc_phase(graphs, card, by_path)
+    rank_refs = hits_salsa_phase(graphs, card, by_path)
+    wtf_refs = wtf_phase(graphs, card, by_path)
+    bc_refs = bc_phase(graphs, card, by_path)
     launches["value_step"] = sum(by_path.values())
     # ---- end of the link-analysis paths ------------------------------
     print(f"  value_step launches per path: {by_path}", flush=True)
+    # ---- the default modes: no hand-written kernel may launch --------
+    bfs_xla_phase(csr20, src, ref_labels, ref_preds, res, card)
+    sssp_xla_phase(sssp_planes, csr14, card)
+    cc_xla_phase(csr20, card)
+    rank_xla_phase(graphs, pr_ref, rank_refs, wtf_refs, card)
+    bc_xla_phase(graphs, bc_refs, csr14, card)
 
     for name, count in {**launches, **by_path, **chain_counts,
                         **touch_counts, **spmv_counts}.items():

@@ -8,7 +8,14 @@ the same name.  Its kernels are written by hand for NVIDIA Hopper
 PyTorch version beside it, which is what runs for tensors on the CPU.
 
 Entry points take ``device=None``, which means the CUDA card; see
-`device.resolve_device`.
+`device.resolve_device`.  Each primitive's default mode runs the
+operator layer (`ops/advance.py`, `filter.py`, `frontier.py`,
+`priority.py`, `segment.py`) on a padded `DeviceGraph`, as the
+reference's default XLA modes do.
 """
 
 from gunrockinst_tpu_torch.device import resolve_device  # noqa: F401
+from gunrockinst_tpu_torch.graph.csr import CsrGraph, DeviceGraph  # noqa: F401
+from gunrockinst_tpu_torch.graph.market import load_market  # noqa: F401
+from gunrockinst_tpu_torch.graph.rmat import rmat_graph  # noqa: F401
+from gunrockinst_tpu_torch.graph.lattice import grid_graph  # noqa: F401

@@ -1,13 +1,17 @@
-"""Connected components: the host entry `run` and the value-plane driver
-`get_cc_planes`.
+"""Connected components: the host entry `run`, the hook-and-jump
+`cc_kernel` and the value-plane driver `get_cc_planes`.
 
-Counterpart of the JAX package's `primitives/cc.py`.  This slice of the
-port carries `mode="planes"`: min-label propagation, comp[v] <- min over
-the undirected neighbours u of comp[u], as rounds of full i32 min
-sweeps through the value kernel (`ops/value.py`), one launch per round
-and one read of the kernel's changed count.  The fixpoint is the min
-input id of each weakly connected component.  The hook-and-jump
-`mode="xla"` is not ported yet and raises `NotImplementedError`.
+Counterpart of the JAX package's `primitives/cc.py`.  Both modes reach
+the min input id of each weakly connected component:
+
+  * "xla" (the default, `cc_kernel`): the reference's Soman hooking
+    and pointer jumping (cc_functor.cuh:19-367) as one fixpoint,
+    hook both ways along every edge (scatter-min), then jump twice
+    (comp <- comp[comp]), with one host read a round;
+  * "planes": min-label propagation, comp[v] <- min over the undirected
+    neighbours u of comp[u], as rounds of full i32 min sweeps through
+    the value kernel (`ops/value.py`), one launch per round and one
+    read of the kernel's changed count.
 """
 
 from __future__ import annotations
@@ -21,14 +25,32 @@ import torch
 
 from gunrockinst_tpu_torch.device import DeviceLike, resolve_device
 from gunrockinst_tpu_torch.graph.coo import CooGraph
-from gunrockinst_tpu_torch.graph.csr import CsrGraph
+from gunrockinst_tpu_torch.graph.csr import CsrGraph, DeviceGraph
 from gunrockinst_tpu_torch.graph.relabel import is_symmetric
+from gunrockinst_tpu_torch.ops.segment import scatter_min
 from gunrockinst_tpu_torch.ops.value import ValueStepper
 from gunrockinst_tpu_torch.ops.words import pack_bitmap
-from gunrockinst_tpu_torch.primitives.base import Stats, Timer, sync
+from gunrockinst_tpu_torch.primitives.base import (GraphLike, Stats, Timer,
+                                                   device_graph, sync)
 from gunrockinst_tpu_torch.primitives.bfs_pallas import search_graph
 
 _planes_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def cc_kernel(graph: DeviceGraph) -> Tuple[torch.Tensor, int]:
+    """Returns (comp (n_pad,) int32, rounds)."""
+    esrc, edst = graph.edge_src, graph.edge_dst
+    comp = torch.arange(graph.n_pad, dtype=torch.int32, device=graph.device)
+    changed, it = True, 0
+    while changed and it < graph.n + 2:
+        cs, cd = comp[esrc], comp[edst]
+        hook = scatter_min(scatter_min(comp, edst, cs), esrc, cd)
+        hook = hook[hook]
+        hook = hook[hook]
+        changed = bool((hook != comp).any())
+        comp = hook
+        it += 1
+    return comp, it
 
 
 def symmetrized(csr: CsrGraph) -> CsrGraph:
@@ -97,25 +119,36 @@ class CcResult:
     stats: Stats
 
 
-def run(graph: CsrGraph, mode: str = "xla",
+def run(graph: GraphLike, mode: str = "xla",
         device: DeviceLike = None) -> CcResult:
     """Host entry (run_cc analog, app/cc/cc_app.cu): component ids (min
     vertex id of each weakly connected component) and the stats block.
+    mode="planes" needs a host CsrGraph.
 
     `device=None` runs on the CUDA card and raises without one;
-    `device="cpu"` runs the kernel's plain version."""
+    `device="cpu"` runs there (the kernel's plain version for
+    "planes")."""
     dev = resolve_device(device)
-    if mode != "planes":
-        raise NotImplementedError(
-            f"mode={mode!r} is not ported yet: ROADMAP.md queue 1, item 6")
-    if not isinstance(graph, CsrGraph):
-        raise TypeError("mode='planes' needs a host CsrGraph")
-    fn = get_cc_planes(graph, dev)
-    fn()                    # warm-up: the first call builds the kernel
-    comp_np, it, device_ms = fn()
-    roots = int((comp_np == np.arange(graph.num_nodes)).sum())
+    if mode == "planes":
+        if not isinstance(graph, CsrGraph):
+            raise TypeError("mode='planes' needs a host CsrGraph")
+        fn = get_cc_planes(graph, dev)
+        fn()                # warm-up: the first call builds the kernel
+        comp_np, it, device_ms = fn()
+        n, m = graph.num_nodes, graph.num_edges
+    elif mode == "xla":
+        g = device_graph(graph, dev)
+        cc_kernel(g)                    # warm-up
+        sync(dev)
+        with Timer() as t:
+            comp, it = cc_kernel(g)
+            sync(dev)
+        comp_np, device_ms = comp[: g.n].cpu().numpy(), t.elapsed_ms
+        n, m = g.n, g.m
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    roots = int((comp_np == np.arange(n)).sum())
     stats = Stats(elapsed_ms=device_ms, search_depth=int(it),
-                  nodes_visited=graph.num_nodes,
-                  edges_visited=graph.num_edges)
+                  nodes_visited=n, edges_visited=m)
     return CcResult(component_ids=comp_np, num_components=roots,
                     stats=stats)

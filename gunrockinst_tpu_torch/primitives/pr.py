@@ -1,21 +1,23 @@
-"""PageRank (Gunrock semantics): the host entry `run`, the value-plane
-driver `get_pr_planes` and the pull-SpMV driver `pr_pallas`.
+"""PageRank (Gunrock semantics): the host entry `run`, the operator-layer
+`pr_kernel`, the value-plane driver `get_pr_planes` and the pull-SpMV
+driver `pr_pallas`.
 
 Counterpart of the JAX package's `primitives/pr.py`.  Each iteration
-sums rank/deg over the in-edges with one f32 add sweep (fixed
-summation order, so repeated runs give the same bits), then runs the
-elementwise update in plain torch:
+sums rank/deg over the in-edges (fixed summation order, so repeated
+runs give the same bits), then runs the elementwise update:
 
     contrib = rank / deg where active, else 0
     next    = delta * sums + (1 - delta) * personal   (live vertices)
     active  = |next - rank| > threshold
 
 with the dangling-vertex pre-pass of `oracles.remove_dangling_degrees`.
-`mode="planes"` sweeps the relabeled device CSC that BFS holds
-(`ops/value.py`); `mode="pallas"` sweeps the input graph's own CSC,
-unrelabeled, through `ops/spmv.py::SpmvSweeper` (the reference's
-pull-SpMV route).  Both loop on the host.  The XLA scatter mode is not
-ported yet and raises `NotImplementedError`.
+`mode="xla"` (the default, `pr_kernel`) runs it on a `DeviceGraph`
+with the reference's per-edge live guard and the float sums of
+`ops/segment.py::sum_by_dst` (the reference's atomicAdd,
+pr_functor.cuh:67); `mode="planes"` sweeps the relabeled device CSC
+that BFS holds (`ops/value.py`); `mode="pallas"` sweeps the input
+graph's own CSC, unrelabeled, through `ops/spmv.py::SpmvSweeper` (the
+reference's pull-SpMV route).  All loop on the host.
 """
 
 from __future__ import annotations
@@ -28,15 +30,64 @@ import numpy as np
 import torch
 
 from gunrockinst_tpu_torch.device import DeviceLike, resolve_device
-from gunrockinst_tpu_torch.graph.csr import CsrGraph
+from gunrockinst_tpu_torch.graph.csr import CsrGraph, DeviceGraph
+from gunrockinst_tpu_torch.ops.segment import sum_by_dst
 from gunrockinst_tpu_torch.ops.spmv import SpmvSweeper
 from gunrockinst_tpu_torch.oracles.ranking import remove_dangling_degrees
-from gunrockinst_tpu_torch.primitives.base import Stats, Timer, sync
+from gunrockinst_tpu_torch.primitives.base import (GraphLike, Stats, Timer,
+                                                   device_graph, sync)
 from gunrockinst_tpu_torch.primitives.bfs_pallas import (add_stepper,
                                                          add_sweep,
                                                          search_graph)
 
 _planes_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def effective_degrees(graph: DeviceGraph) -> torch.Tensor:
+    """The dangling-removal fixpoint (pr_enactor.cuh:247-300): a
+    vertex's effective out-degree counts only the edges to vertices
+    that still have out-edges themselves.  (n_pad,) int32."""
+    esrc, edst = graph.edge_src, graph.edge_dst
+    deg = graph.out_degree
+    while True:
+        live = (deg[edst] > 0) & (deg[esrc] > 0)
+        newdeg = torch.zeros_like(deg).index_add_(0, esrc,
+                                                  live.to(deg.dtype))
+        newdeg = torch.where(deg > 0, newdeg, 0)
+        if not bool((newdeg != deg).any()):
+            return newdeg
+        deg = newdeg
+
+
+def pr_kernel(graph: DeviceGraph, delta: float, threshold: float,
+              src: int = -1, max_iter: int = 50
+              ) -> Tuple[torch.Tensor, int]:
+    """Returns (rank (n_pad,) f32, iterations): the reference's update
+    rule, iterated while some vertex moved more than `threshold` and
+    at most max_iter + 1 times; src >= 0 personalizes."""
+    dev = graph.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    esrc, edst = graph.edge_src, graph.edge_dst
+    deg = effective_degrees(graph)
+    degf = torch.clamp(deg.to(torch.float32), min=1.0)
+    vids = torch.arange(graph.n_pad, dtype=torch.int32, device=dev)
+    real = vids < graph.n
+    personal = (real if src < 0 else vids == src).to(torch.float32)
+    d = torch.tensor(delta, **f32)
+    keep = 1.0 - d
+    thr = torch.tensor(threshold, **f32)
+    rank = torch.where(real, keep, 0.0)
+    active = (deg > 0) & real
+    ok = (deg[esrc] > 0) & (deg[edst] > 0)
+    it = 0
+    while it <= max_iter and bool(active.any()):
+        contrib = torch.where(active, rank / degf, 0.0)
+        nxt = sum_by_dst(graph, torch.where(ok, contrib[esrc], 0.0))
+        nxt = torch.where(real, d * nxt + keep * personal, 0.0)
+        active = (torch.abs(nxt - rank) > thr) & real
+        rank = nxt
+        it += 1
+    return rank, it
 
 
 def _iterate(sweep, deg1: torch.Tensor, live: torch.Tensor,
@@ -173,34 +224,47 @@ class PrResult:
     stats: Stats
 
 
-def run(graph: CsrGraph, delta: float = 0.85, threshold: float = 0.01,
+def run(graph: GraphLike, delta: float = 0.85, threshold: float = 0.01,
         max_iter: int = 50, src: int = -1, normalize: bool = False,
         mode: str = "xla", device: DeviceLike = None) -> PrResult:
     """Host entry (run_pr analog, app/pr/pr_app.cu).  src >= 0 enables
     personalized PageRank; normalize=True rescales ranks to sum 1.
-    mode "planes" sweeps the relabeled device CSC (`get_pr_planes`),
-    "pallas" the input graph's own CSC (`pr_pallas`).
+    mode "xla" runs `pr_kernel` on a DeviceGraph; "planes" sweeps the
+    relabeled device CSC (`get_pr_planes`) and "pallas" the input
+    graph's own CSC (`pr_pallas`), both from a host CsrGraph.
 
     `device=None` runs on the CUDA card and raises without one;
-    `device="cpu"` runs the kernel's plain version."""
+    `device="cpu"` runs there (the kernel's plain version for "planes"
+    and "pallas")."""
     dev = resolve_device(device)
-    if mode not in ("planes", "pallas"):
-        raise NotImplementedError(
-            f"mode={mode!r} is not ported yet: ROADMAP.md queue 1, item 6")
-    if not isinstance(graph, CsrGraph):
-        raise TypeError(f"mode={mode!r} needs a host CsrGraph")
-    if mode == "planes":
-        fn = get_pr_planes(graph, dev)
-    else:
+    if mode == "xla":
+        g = device_graph(graph, dev)
+
         def fn(delta, threshold, src, max_iter):
-            return pr_pallas(graph, delta, threshold, max_iter, src, dev)
+            sync(dev)
+            with Timer() as t:
+                rank, it = pr_kernel(g, delta, threshold, src, max_iter)
+                sync(dev)
+            return rank[: g.n].cpu().numpy(), it, t.elapsed_ms
+        n, m = g.n, g.m
+    elif mode in ("planes", "pallas"):
+        if not isinstance(graph, CsrGraph):
+            raise TypeError(f"mode={mode!r} needs a host CsrGraph")
+        if mode == "planes":
+            fn = get_pr_planes(graph, dev)
+        else:
+            def fn(delta, threshold, src, max_iter):
+                return pr_pallas(graph, delta, threshold, max_iter, src,
+                                 dev)
+        n, m = graph.num_nodes, graph.num_edges
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
     fn(delta, threshold, src, max_iter)  # warm-up: builds the kernel
     ranks, it, device_ms = fn(delta, threshold, src, max_iter)
     if normalize and ranks.sum() > 0:
         ranks = ranks / ranks.sum()
-    n = graph.num_nodes
     order = np.lexsort((np.arange(n), -ranks))
     stats = Stats(elapsed_ms=device_ms, search_depth=int(it),
-                  nodes_visited=n, edges_visited=graph.num_edges * int(it))
+                  nodes_visited=n, edges_visited=m * int(it))
     return PrResult(ranks=ranks, node_ids=order.astype(np.int32),
                     sorted_ranks=ranks[order], stats=stats)

@@ -1,5 +1,6 @@
 """SALSA (stochastic approach for link-structure analysis): the host entry
-`run` and the value-plane driver `get_salsa_planes`.
+`run`, the operator-layer `salsa_kernel` and the value-plane driver
+`get_salsa_planes`.
 
 Counterpart of the JAX package's `primitives/salsa.py`.  Per iteration:
 
@@ -10,11 +11,12 @@ Counterpart of the JAX package's `primitives/salsa.py`.  Per iteration:
 
 with hub' zero where outdeg is 0 and auth' zero where indeg is 0, from
 hub = 1/#(outdeg>0) and auth = 1/#(indeg>0) (salsa_problem.cuh:414-415);
-fixed iteration count, host loop.  Each sum is one ungated f32 add
-sweep of the value kernel (`ops/value.py`) over the forward or the
-reverse device CSC (`SearchGraph.reverse`), the same steppers HITS
-uses.  The XLA scatter-add mode is not ported yet and raises
-`NotImplementedError`.
+fixed iteration count, host loop.  `mode="xla"` (the default,
+`salsa_kernel`) runs each sum as the reference's scatter-add on a
+`DeviceGraph`, through `ops/segment.py`'s fixed-order sums;
+`mode="planes"` runs each as one ungated f32 add sweep of the value
+kernel (`ops/value.py`) over the forward or the reverse device CSC
+(`SearchGraph.reverse`), the same steppers HITS uses.
 """
 
 from __future__ import annotations
@@ -27,13 +29,39 @@ import numpy as np
 import torch
 
 from gunrockinst_tpu_torch.device import DeviceLike, resolve_device
-from gunrockinst_tpu_torch.graph.csr import CsrGraph
-from gunrockinst_tpu_torch.primitives.base import Stats, Timer, sync
+from gunrockinst_tpu_torch.graph.csr import CsrGraph, DeviceGraph
+from gunrockinst_tpu_torch.ops.segment import sum_by_dst, sum_by_src
+from gunrockinst_tpu_torch.primitives.base import (GraphLike, Stats, Timer,
+                                                   device_graph, sync)
 from gunrockinst_tpu_torch.primitives.bfs_pallas import (add_stepper,
                                                          add_sweep,
                                                          search_graph)
+from gunrockinst_tpu_torch.primitives.hits import degrees_f32
 
 _planes_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def salsa_kernel(graph: DeviceGraph, max_iter: int = 50
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (hub (n_pad,) f32, auth (n_pad,) f32)."""
+    esrc, edst = graph.edge_src, graph.edge_dst
+    outdeg, indeg = degrees_f32(graph)
+    so_e = torch.clamp(outdeg, min=1.0)[esrc]
+    si_e = torch.clamp(indeg, min=1.0)[edst]
+    out_nodes = torch.clamp((outdeg > 0).sum(dtype=torch.float32), min=1.0)
+    in_nodes = torch.clamp((indeg > 0).sum(dtype=torch.float32), min=1.0)
+    # strictly < n: the dummy vertex starts at 0 like all padding
+    real = torch.arange(graph.n_pad, device=graph.device) < graph.n
+    hub = torch.where(real, 1.0 / out_nodes, 0.0)
+    auth = torch.where(real, 1.0 / in_nodes, 0.0)
+    for _ in range(max_iter):
+        x = sum_by_dst(graph, hub[esrc] / so_e)
+        new_hub = sum_by_src(graph, x[edst] / si_e)
+        y = sum_by_src(graph, auth[edst] / si_e)
+        new_auth = sum_by_dst(graph, y[esrc] / so_e)
+        hub = torch.where(outdeg > 0, new_hub, 0.0)
+        auth = torch.where(indeg > 0, new_auth, 0.0)
+    return hub, auth
 
 
 class _SalsaPlanes:
@@ -92,21 +120,31 @@ class SalsaResult:
     stats: Stats
 
 
-def run(graph: CsrGraph, max_iter: int = 50, mode: str = "xla",
+def run(graph: GraphLike, max_iter: int = 50, mode: str = "xla",
         device: DeviceLike = None) -> SalsaResult:
-    """Host entry (run_salsa analog).  `device=None` runs on the CUDA
-    card and raises without one; `device="cpu"` runs the kernel's plain
-    version."""
+    """Host entry (run_salsa analog); mode="planes" needs a host
+    CsrGraph.  `device=None` runs on the CUDA card and raises without
+    one; `device="cpu"` runs there (the kernel's plain version for
+    "planes")."""
     dev = resolve_device(device)
-    if mode != "planes":
-        raise NotImplementedError(
-            f"mode={mode!r} is not ported yet: ROADMAP.md queue 1, item 6")
-    if not isinstance(graph, CsrGraph):
-        raise TypeError("mode='planes' needs a host CsrGraph")
-    fn = get_salsa_planes(graph, dev)
-    fn(max_iter)                        # warm-up: builds the kernel
-    hub, auth, device_ms = fn(max_iter)
+    if mode == "planes":
+        if not isinstance(graph, CsrGraph):
+            raise TypeError("mode='planes' needs a host CsrGraph")
+        fn = get_salsa_planes(graph, dev)
+        fn(max_iter)                    # warm-up: builds the kernel
+        hub, auth, device_ms = fn(max_iter)
+        n, m = graph.num_nodes, graph.num_edges
+    elif mode == "xla":
+        g = device_graph(graph, dev)
+        salsa_kernel(g, max_iter)                 # warm-up
+        sync(dev)
+        with Timer() as t:
+            hub, auth = salsa_kernel(g, max_iter)
+            sync(dev)
+        hub, auth = hub[: g.n].cpu().numpy(), auth[: g.n].cpu().numpy()
+        device_ms, n, m = t.elapsed_ms, g.n, g.m
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
     stats = Stats(elapsed_ms=device_ms, search_depth=max_iter,
-                  nodes_visited=graph.num_nodes,
-                  edges_visited=graph.num_edges * max_iter)
+                  nodes_visited=n, edges_visited=m * max_iter)
     return SalsaResult(hub_ranks=hub, auth_ranks=auth, stats=stats)

@@ -140,13 +140,19 @@ def test_bc_sweeps_are_gated_add_sweeps_on_both_cscs(monkeypatch):
 
 
 def test_bc_unported_modes_and_bad_inputs_raise():
-    port = CsrGraph.from_arrays(np.array([0, 1, 2, 2]), np.array([1, 2]))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, item 6"):
-        bc.run(port, device="cpu")              # all sources, xla
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, item 6"):
-        bc.run(port, src=0, mode="xla", device="cpu")
+    """The modes that raised before this slice (all sources, the
+    default, and one source, both "xla") now run and equal the JAX
+    package's; bad inputs still raise."""
+    ro, ci = np.array([0, 1, 2, 2]), np.array([1, 2])
+    port = CsrGraph.from_arrays(ro, ci)
+    ref = RefCsr(row_offsets=ro, col_indices=ci)
+    for got, want in ((bc.run(port, device="cpu"), ref_bc.run(ref)),
+                      (bc.run(port, src=0, mode="xla", device="cpu"),
+                       ref_bc.run(ref, src=0, mode="xla"))):
+        np.testing.assert_array_equal(got.labels, want.labels)
+        np.testing.assert_array_equal(got.sigmas, want.sigmas)
+        np.testing.assert_allclose(got.bc_values, want.bc_values,
+                                   rtol=1e-4, atol=1e-6)
     with pytest.raises(ValueError):
         bc.run(port, src=-1, mode="planes", device="cpu")
     with pytest.raises(ValueError):

@@ -39,7 +39,8 @@ def test_run_matches_reference_and_oracle(monkeypatch, scale, ef,
     ref = ref_rmat(scale, ef, undirected=undirected, seed=scale + ef)
     port = _port_of(ref)
     for src in sources:
-        got = bfs.run(port, src, mark_preds=True, device="cpu")
+        got = bfs.run(port, src, mark_preds=True, traversal_mode="auto",
+                      device="cpu")
         want = ref_bfs.run(ref, src, mark_preds=True,
                            traversal_mode="mega")
         np.testing.assert_array_equal(got.labels, want.labels)
@@ -113,7 +114,7 @@ def test_two_components_and_isolated_source():
     port = CsrGraph.from_coo(CooGraph(6, np.concatenate([u, v]),
                                       np.concatenate([v, u]), None))
     for src in (0, 3, 5):           # vertex 5 has no edges
-        got = bfs.run(port, src, device="cpu")
+        got = bfs.run(port, src, traversal_mode="auto", device="cpu")
         labels, preds = bfs_reference(port, src)
         np.testing.assert_array_equal(got.labels, labels)
         np.testing.assert_array_equal(got.preds, preds)
@@ -154,20 +155,26 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         bfs_pallas.get_fused_bfs_multi(port, reps=1)
     with pytest.raises(RuntimeError):
         bfs_pallas.bfs_pallas_fused(port, 0)
-    assert bfs.run(port, 0, device="cpu").labels.tolist() == [0, 1]
+    assert bfs.run(port, 0, traversal_mode="auto",
+                   device="cpu").labels.tolist() == [0, 1]
 
 
 def test_unported_modes_raise():
-    port = CsrGraph.from_arrays(np.array([0, 1, 1]), np.array([1]))
-    for mode in ("dense", "sparse"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1, item 6"):
-            bfs.run(port, 0, traversal_mode=mode, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, item 6"):
-        bfs.run(port, 0, traversal_mode="auto", max_depth=3, device="cpu")
+    """The modes that raised before this slice ("dense", "sparse", and
+    "auto" with a depth cap) now run and equal the JAX package's;
+    an out-of-range source still raises."""
+    ref = ref_rmat(9, 4, undirected=False, seed=3)
+    port = _port_of(ref)
+    for mode, depth in (("dense", None), ("sparse", None), ("auto", 3)):
+        got = bfs.run(port, 0, traversal_mode=mode, max_depth=depth,
+                      device="cpu")
+        want = ref_bfs.run(ref, 0, traversal_mode=mode, max_depth=depth)
+        np.testing.assert_array_equal(got.labels, want.labels)
+        np.testing.assert_array_equal(got.preds, want.preds)
+        assert got.stats.total_queued == want.stats.total_queued
+        assert got.stats.route == mode
     with pytest.raises(ValueError):
-        bfs.run(port, 2, device="cpu")
+        bfs.run(port, ref.num_nodes, device="cpu")
     with pytest.raises(ValueError):
         bfs_pallas.get_fused_bfs(port, device="cpu")(-1)
 
@@ -199,7 +206,7 @@ def test_port_runs_with_jax_and_reference_unimportable():
         "from gunrockinst_tpu_torch.oracles import bfs_reference\n"
         "import chip_smoke\n"
         "g = rmat_graph(10, 4, undirected=True, seed=1)\n"
-        "r = bfs.run(g, 0, device='cpu')\n"
+        "r = bfs.run(g, 0, traversal_mode='auto', device='cpu')\n"
         "assert np.array_equal(r.labels, bfs_reference(g, 0)[0])\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -142,7 +142,7 @@ def test_fused_deep_search_takes_chain_route(monkeypatch):
         oracle_labels, oracle_preds = bfs_reference(port, src)
         np.testing.assert_array_equal(labels, oracle_labels)
         np.testing.assert_array_equal(preds, oracle_preds)
-    res = bfs.run(port, 599, device="cpu")
+    res = bfs.run(port, 599, traversal_mode="auto", device="cpu")
     assert res.stats.route == "chain"
     np.testing.assert_array_equal(res.labels, bfs_reference(port, 599)[0])
 

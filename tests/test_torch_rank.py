@@ -195,13 +195,23 @@ def test_rank_paths_share_the_add_steppers():
 
 
 def test_unported_modes_and_bad_inputs_raise():
-    port = CsrGraph.from_arrays(np.array([0, 1, 2, 2]), np.array([1, 2]))
-    for call in (lambda: hits.run(port, device="cpu"),
-                 lambda: salsa.run(port, device="cpu"),
-                 lambda: wtf.run(port, 0, device="cpu")):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1, item 6"):
-            call()
+    """The default modes that raised before this slice (HITS, SALSA and
+    WTF "xla") now run and equal the JAX package's; bad inputs still
+    raise."""
+    ro, ci = np.array([0, 1, 2, 2]), np.array([1, 2])
+    port = CsrGraph.from_arrays(ro, ci)
+    ref = RefCsr(row_offsets=ro, col_indices=ci)
+    pairs = ((hits.run(port, device="cpu"), ref_hits.run(ref)),
+             (salsa.run(port, device="cpu"), ref_salsa.run(ref)))
+    for got, want in pairs:
+        np.testing.assert_allclose(got.hub_ranks, want.hub_ranks,
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got.auth_ranks, want.auth_ranks,
+                                   rtol=1e-5, atol=1e-6)
+    got, want = wtf.run(port, 0, device="cpu"), ref_wtf.run(ref, 0)
+    np.testing.assert_array_equal(got.cot, want.cot)
+    np.testing.assert_allclose(got.wtf_ranks, want.wtf_ranks, rtol=1e-5,
+                               atol=1e-6)
     for src in (-1, 3):
         with pytest.raises(ValueError):
             wtf.run(port, src, mode="planes", device="cpu")

@@ -139,24 +139,37 @@ def test_value_paths_share_the_device_csc():
 
 
 def test_unported_modes_and_bad_inputs_raise():
-    port = CsrGraph.from_arrays(np.array([0, 1, 2, 2]), np.array([1, 2]),
-                                np.array([1.0, 2.0], np.float32))
+    """The modes that raised before this slice (SSSP "sparse", the
+    default, "delta" and "bellman"; CC and PR "xla") now run and equal
+    the JAX package's; bad inputs still raise."""
+    ro, ci = np.array([0, 1, 2, 2]), np.array([1, 2])
+    w = np.array([1.0, 2.0], np.float32)
+    port = CsrGraph.from_arrays(ro, ci, w)
+    ref = RefCsr(row_offsets=ro, col_indices=ci, edge_values=w)
     for mode in ("sparse", "delta", "bellman"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sssp.run(port, 0, mode=mode, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sssp.run(port, 0, device="cpu")          # the default mode
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cc.run(port, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pr.run(port, mode="xla", device="cpu")     # "pallas" is ported
+        got = sssp.run(port, 0, delta=1.0, mode=mode, device="cpu")
+        want = ref_sssp.run(ref, 0, delta=1.0, mode=mode)
+        np.testing.assert_array_equal(got.dist, want.dist)
+        np.testing.assert_array_equal(got.preds, want.preds)
+        assert got.stats.search_depth == want.stats.search_depth
+    got = sssp.run(port, 0, device="cpu")          # the default mode
+    want = ref_sssp.run(ref, 0)
+    np.testing.assert_array_equal(got.dist, want.dist)
+    np.testing.assert_array_equal(got.preds, want.preds)
+    got, want = cc.run(port, device="cpu"), ref_cc.run(ref)
+    np.testing.assert_array_equal(got.component_ids, want.component_ids)
+    got = pr.run(port, mode="xla", device="cpu")   # "pallas" was ported
+    want = ref_pr.run(ref, mode="xla")
+    np.testing.assert_allclose(got.ranks, want.ranks, rtol=1e-5, atol=1e-6)
+    assert got.stats.search_depth == want.stats.search_depth
     for src in (-1, 3):
         with pytest.raises(ValueError):
             sssp.run(port, src, mode="planes", device="cpu")
     negative = CsrGraph.from_arrays(port.row_offsets, port.col_indices,
                                     np.array([1.0, -2.0], np.float32))
-    with pytest.raises(ValueError):
-        sssp.run(negative, 0, mode="planes", device="cpu")
+    for mode in ("planes", "sparse"):
+        with pytest.raises(ValueError):
+            sssp.run(negative, 0, mode=mode, device="cpu")
     with pytest.raises(ValueError):
         pr.run(port, src=3, mode="planes", device="cpu")
 
