@@ -37,7 +37,12 @@ Phases, each of which raises on failure:
                push and to pull) with the direction it took, beside the
                plain version and the level's bound;
   4. bfs.run - bfs.run(csr, src, traversal_mode="auto") at rmat-s20:
-               labels and preds equal the NumPy oracle exactly;
+               labels and preds equal the NumPy oracle exactly; the
+               preds again, as the port's earlier `SearchGraph.min_preds`
+               made them (an int64 destination per edge, cached) and as
+               they are made now, both equal to the oracle, with the
+               card memory each took (peak above the call's start, and
+               held after it, from torch.cuda.max_memory_allocated);
   5. multi   - get_fused_bfs_multi(csr, reps=64) at rmat-s20 over the 64
                top-degree sources (bench.py's choice): every visited set
                equals the oracle's; ms per search and GTEPS.
@@ -168,6 +173,36 @@ Each entry point of phases 19-23 reports the host clock of its timed
 call, after a warm-up call and ended by torch.cuda.synchronize(); these
 windows are not in the kernels line.
 
+Phases 24-28 run the last primitives and sampling at rmat-s20
+undirected, seed 42, each call inside the same no-kernel window:
+
+ 24. topk    - topk.run(k=1000) equals topk_degree_reference exactly;
+ 25. dobfs   - dobfs.run from phase 4's source: labels and preds equal
+               phase 4's oracle's; pull_levels printed;
+ 26. mis     - mis.run(seed=0), checked by one vectorized NumPy pass
+               over the edges (`check_mis`, independent of the port's
+               code): every vertex beats each neighbour decided in its
+               round or later, one decided in round r > 0 was beaten in
+               round r-1, and in_set is independent and maximal;
+ 27. mst     - mst.run on phase 7's weights 1..63: total weight allclose
+               (rtol 1e-6) to scipy's minimum_spanning_tree summed in
+               float64; n - components edges, whose scipy components
+               equal the input's; the host canonical_edges time;
+ 28. sample  - sample_khop from the 1024 top-degree seeds, k=10, 2 hops,
+               from a CUDA generator: every valid (v, nbr, eid) an edge
+               of v's CSR segment, the dummies masked, one seed the same
+               bits twice (and the same as explicit draws of it);
+ 29. host    - cli.main at rmat-s16 undirected, validation on, for sssp
+               (default), cc planes, pr pallas, bfs mega, topk, dobfs,
+               mis and mst: each prints CORRECTNESS: PASSED, the first
+               four launch value_step, value_step, the pull-SpMV and
+               mega_step (their counts join the kernels line's
+               launches_by_path) and nothing else, the last four
+               nothing; api.bfs/sssp/cc/bc/pagerank/topk at rmat-s16
+               equal the primitives' own calls; SteppedBfs
+               (slice_depth=2) at rmat-s20 gives phase 4's labels, with
+               its tracer's summary (avg_duty).
+
 Launch counts of the BFS kernel are zeroed just before phase 4 and read
 just after phase 5; those of the value kernel are zeroed just before
 and read just after each entry-point call of phases 7-9 (sssp, sssp
@@ -175,7 +210,8 @@ weighted, cc, pr), so the replay and the rmat-s14 check do not count;
 the chain kernel's around phase 11's bfs.run, the touched sweep's
 around each entry-point call of phase 13, the pull-SpMV's around phase
 15's pr.run calls, and the value kernel's again around each
-entry-point call of phases 16-18.  Phases 3, 6, 10, 12 and 14, which
+entry-point call of phases 16-18, and every count around each CLI
+subcommand of phase 29.  Phases 3, 6, 10, 12 and 14, which
 hold kernels against their plain versions and time them, count for no
 path.  A path with no launch in its window fails the run.  The
 last lines are the kernels line, the nvidia-smi line and {"ok": true,
@@ -1905,6 +1941,361 @@ def bc_xla_phase(graphs, bc_refs, csr14, card):
     done(t0)
 
 
+# ---- phases 24-29: the last primitives and the host surfaces -----------
+# (their modules are imported where they run, so that `--variants DIR`
+# still runs on checkouts that predate them)
+
+def preds_memory(call):
+    """(call's result, peak card bytes above the start, bytes still held
+    after it) of one `call`."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = call()
+    torch.cuda.synchronize()
+    return (out, torch.cuda.max_memory_allocated() - base,
+            torch.cuda.memory_allocated() - base)
+
+
+def old_min_preds(g, labels_np, src, held):
+    """The preds of `bfs_pallas._preds` as the port's earlier
+    `SearchGraph.min_preds` made them, for the peak-memory comparison: an int64 destination per
+    CSC edge, which that version cached for the graph's lifetime (put in
+    `held`), an int64 copy of `in_src` and int64 labels per edge."""
+    st = g.stepper
+    dst = torch.repeat_interleave(
+        torch.arange(st.n, device=g.device),
+        (st.offsets[1:] - st.offsets[:-1]).long())
+    held.append(dst)
+    labels = g.to_internal(torch.from_numpy(labels_np).to(g.device), INF32)
+    u, v = st.in_src.long(), dst
+    lu = labels[u].long()
+    ok = (lu != INF32) & (labels[v].long() == lu + 1)
+    ids = g.to_internal(torch.arange(g.n, dtype=torch.int32,
+                                     device=g.device), INF32)
+    preds = torch.full((g.n_words * 32,), INF32, dtype=torch.int32,
+                       device=g.device)
+    preds.scatter_reduce_(0, v, torch.where(ok, ids[u], INF32), "amin")
+    preds = torch.where(preds == INF32, -1, preds)
+    out = g.to_input(preds).cpu().numpy()
+    out[src] = -1
+    return out
+
+
+def preds_memory_line(csr20, src, labels, want, card):
+    """Phase 4's preds, as they were made before and as they are now:
+    both equal the oracle's; the card memory each took."""
+    dev = resolve_device(None)
+    g = bfs_pallas.search_graph(csr20, dev)
+    held = []
+    old, old_peak, old_held = preds_memory(
+        lambda: old_min_preds(g, labels, src, held))
+    held.clear()
+    new, new_peak, new_held = preds_memory(
+        lambda: bfs_pallas._preds(csr20, dev, labels, src))
+    for what, p in (("the earlier preds", old), ("preds", new)):
+        if not np.array_equal(p, want):
+            raise AssertionError(f"{what} differ from the oracle")
+    mb = 1 / 2**20
+    print(f"  preds (min_preds, {csr20.num_edges} CSC edges): card peak "
+          f"above the call's start {old_peak * mb:.1f} MiB, held after it "
+          f"{old_held * mb:.1f} MiB as made before (an int64 "
+          f"destination cached per edge) -> peak {new_peak * mb:.1f} MiB, "
+          f"held {new_held * mb:.1f} MiB now; both equal the oracle "
+          f"[{card}]", flush=True)
+
+
+def timed_ms(call):
+    """(call's result, wall ms of one call ended by a card sync)."""
+    t1 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t1) * 1e3
+
+
+def topk_phase(csr20, card):
+    """Phase 24: topk.run(k=1000) at rmat-s20 equals the oracle."""
+    from gunrockinst_tpu_torch.oracles import topk_degree_reference
+    from gunrockinst_tpu_torch.primitives import topk
+    t0 = phase("24 topk.run k=1000, rmat-s20")
+    with no_kernel_launch("topk"):
+        res, wall = timed_ms(lambda: topk.run(csr20, 1000))
+    want = topk_degree_reference(csr20, 1000)
+    got = (res.node_ids, res.centralities, res.in_degrees, res.out_degrees)
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("topk differs from the oracle")
+    print(f"  exact vs the oracle; top centrality {res.centralities[0]}; "
+          f"timed call {res.stats.elapsed_ms:.3f} ms, run {wall:.3f} ms "
+          f"[{card}]", flush=True)
+    done(t0)
+
+
+def dobfs_phase(csr20, src, ref_labels, ref_preds, card):
+    """Phase 25: dobfs.run from phase 4's source: labels and preds equal
+    phase 4's oracle's."""
+    from gunrockinst_tpu_torch.primitives import dobfs
+    t0 = phase("25 dobfs.run, rmat-s20")
+    with no_kernel_launch("dobfs"):
+        res, wall = timed_ms(lambda: dobfs.run(csr20, src))
+    if not (np.array_equal(res.labels, ref_labels)
+            and np.array_equal(res.preds, ref_preds)):
+        raise AssertionError("dobfs labels or preds differ from the oracle")
+    ms = res.stats.elapsed_ms
+    print(f"  exact vs the oracle; depth {res.stats.search_depth}, "
+          f"pull_levels {res.pull_levels}, {ms:.3f} ms, "
+          f"{res.stats.edges_visited / (ms * 1e6):.4f} GTEPS; run "
+          f"{wall:.3f} ms [{card}]", flush=True)
+    done(t0)
+
+
+def edge_list(csr):
+    src = np.repeat(np.arange(csr.num_nodes, dtype=np.int32),
+                    np.diff(csr.row_offsets))
+    return src, csr.col_indices
+
+
+def check_mis(csr, prio, rounds, in_set):
+    """One vectorized pass over the edges of an undirected graph,
+    independent of the port's code: the rounds are Luby's with these
+    priorities, and in_set is independent and maximal."""
+    src, dst = edge_list(csr)
+    n = csr.num_nodes
+    if (rounds < 0).any():
+        raise AssertionError("mis: a vertex was never decided")
+    # a vertex beats every neighbour still undecided when it joined
+    later = rounds[dst] >= rounds[src]
+    if (prio[src][later] < prio[dst][later]).any():
+        raise AssertionError("mis: a vertex joined beside an undecided "
+                             "neighbour of higher priority")
+    # ... and one round earlier some undecided neighbour beat it
+    beaten = (rounds[dst] >= rounds[src] - 1) & (prio[dst] > prio[src])
+    has = np.bincount(src[beaten], minlength=n) > 0
+    if not has[rounds > 0].all():
+        raise AssertionError("mis: a vertex joined later than it could")
+    if (in_set[src] & in_set[dst]).any():
+        raise AssertionError("mis: in_set is not independent")
+    covered = np.bincount(src[in_set[dst]], minlength=n) > 0
+    if not (in_set | covered).all():
+        raise AssertionError("mis: in_set is not maximal")
+
+
+def mis_phase(csr20, card):
+    """Phase 26: mis.run(seed=0) at rmat-s20, checked by `check_mis`."""
+    from gunrockinst_tpu_torch.primitives import mis
+    t0 = phase("26 mis.run seed=0, rmat-s20")
+    with no_kernel_launch("mis"):
+        res, wall = timed_ms(lambda: mis.run(csr20, seed=0))
+    prio = np.random.default_rng(0).permutation(csr20.num_nodes)
+    check_mis(csr20, prio, res.mis_ids, res.in_set)
+    print(f"  Luby rounds, independent and maximal; {res.stats.search_depth}"
+          f" rounds, set of {int(res.in_set.sum())}; timed mis_kernel call "
+          f"{res.stats.elapsed_ms:.3f} ms, run (warm-up and luby_kernel "
+          f"included) {wall:.3f} ms [{card}]", flush=True)
+    done(t0)
+
+
+def mst_phase(wcsr, card):
+    """Phase 27: mst.run on phase 7's weighted graph (weights 1..63):
+    total weight allclose to scipy's (rtol 1e-6), a forest of n -
+    components edges spanning the input's components."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import (connected_components,
+                                      minimum_spanning_tree)
+    from gunrockinst_tpu_torch.primitives import mst
+    t0 = phase("27 mst.run, rmat-s20 weights 1..63")
+    canonical_edges, canon = mst.canonical_edges, {}
+
+    def timed_canonical(csr):        # the host step inside mst.run
+        t1 = time.perf_counter()
+        out = canonical_edges(csr)
+        canon["ms"], canon["m"] = (time.perf_counter() - t1) * 1e3, len(
+            out[0])
+        return out
+    mst.canonical_edges = timed_canonical
+    try:
+        with no_kernel_launch("mst"):
+            res, wall = timed_ms(lambda: mst.run(wcsr))
+    finally:
+        mst.canonical_edges = canonical_edges
+    n = wcsr.num_nodes
+    # scipy reads each directed edge as an undirected one, so a pair's
+    # lighter direction is the one a spanning tree can take
+    a = csr_matrix((wcsr.edge_values.astype(np.float64), wcsr.col_indices,
+                    wcsr.row_offsets), shape=(n, n))
+    want = float(minimum_spanning_tree(a).sum())
+    if not np.isclose(res.total_weight, want, rtol=1e-6, atol=0):
+        raise AssertionError(f"mst total weight {res.total_weight} differs "
+                             f"from scipy's {want}")
+    k_in, lab_in = connected_components(a, directed=False)
+    sel = res.edges
+    forest = csr_matrix((np.ones(len(sel)), (sel[:, 0], sel[:, 1])),
+                        shape=(n, n))
+    k_out, lab_out = connected_components(forest, directed=False)
+
+    def canonical(labels, k):
+        first = np.full(k, n, np.int64)
+        np.minimum.at(first, labels, np.arange(n))
+        return first[labels]
+    if len(sel) != n - k_in or not np.array_equal(
+            canonical(lab_in, k_in), canonical(lab_out, k_out)):
+        raise AssertionError("mst edges are not a spanning forest of the "
+                             "input's components")
+    print(f"  total weight {res.total_weight} (scipy {want}); "
+          f"{len(sel)} edges = n - {k_in} components; "
+          f"{res.stats.search_depth} rounds; timed mst_kernel call "
+          f"{res.stats.elapsed_ms:.3f} ms, run {wall:.3f} ms, of it host "
+          f"canonical_edges {canon['ms']:.3f} ms for {canon['m']} edges "
+          f"[{card}]", flush=True)
+    done(t0)
+
+
+def sampling_phase(csr20, card):
+    """Phase 28: sample_khop from the 1024 top-degree seeds, k=10, 2
+    hops, from a CUDA generator: every valid (v, nbr, eid) is an edge of
+    v's CSR segment, the rest point at the dummy, one seed gives the
+    same bits twice."""
+    from gunrockinst_tpu_torch.ops import sampling
+    t0 = phase("28 sample_khop k=10 hops=2, rmat-s20")
+    dev = resolve_device(None)
+    g = device_graph(csr20, dev)
+    seeds = torch.from_numpy(np.argsort(-csr20.degrees, kind="stable")[
+        :1024].astype(np.int32)).to(dev)
+
+    def call():
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return sampling.sample_khop(g, seeds, 10, 2, generator=gen)
+    with no_kernel_launch("sampling"):
+        call()                                   # warm-up
+        layers, wall = timed_ms(call)
+        again = call()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        draws = [torch.rand((1024 * 10 ** h, 10), generator=gen,
+                            device=dev) for h in range(2)]
+        explicit = sampling.sample_khop(g, seeds, 10, 2, u=draws)
+        eids = [sampling.sample_neighbors(g, f, 10, u=u)[1]
+                for (f, _, _), u in zip(explicit, draws)]
+    ro, dst = g.row_offsets.long(), g.edge_dst
+    for h, ((f, nb, ok), (f2, nb2, ok2), (f3, nb3, ok3), e) in enumerate(
+            zip(layers, again, explicit, eids)):
+        for a, b, c in ((f, f2, f3), (nb, nb2, nb3), (ok, ok2, ok3)):
+            if not (torch.equal(a, b) and torch.equal(a, c)):
+                raise AssertionError(f"sampling hop {h}: two calls with "
+                                     "one generator seed differ")
+        v = f.long()[:, None].expand_as(e)
+        e = e.long()
+        end = ro[(v + 1).clamp(max=g.n_pad - 1)]
+        inside = (e >= ro[v]) & (e < end) & (dst[e] == nb)
+        live = (g.out_degree[f.long()] > 0) & (f != g.n)
+        if not (bool(inside[ok].all()) and bool((nb[~ok] == g.n).all())
+                and torch.equal(ok.any(1), live)):
+            raise AssertionError(f"sampling hop {h}: a sample is not an "
+                                 "edge of its vertex, or a dummy entry is "
+                                 "not masked")
+    valid = [int(ok.sum()) for _, _, ok in layers]
+    print(f"  every valid sample an edge of its vertex, dummies masked, "
+          f"same bits twice; valid {valid} of "
+          f"{[1024 * 10, 1024 * 100]}; {wall:.3f} ms a call [{card}]",
+          flush=True)
+    done(t0)
+
+
+CLI_ARGS = ["rmat", "--rmat-scale=16", "--undirected"]
+# subcommands of phase 29: (argv, the kernels it must launch, the
+# kernels it may launch besides: the pull-SpMV's launches are the value
+# kernel's add sweep, which counts them too)
+CLI_RUNS = [
+    (["sssp"], ("value_step",), ()),
+    (["cc", "--traversal-mode=planes"], ("value_step",), ()),
+    (["pr", "--traversal-mode=pallas"], ("spmv",), ("value_step",)),
+    (["bfs", "--traversal-mode=mega"], ("mega_step",), ()),
+    (["topk"], (), ()), (["dobfs"], (), ()), (["mis"], (), ()),
+    (["mst"], (), ()),
+]
+
+
+def run_cli(argv):
+    """(rc, stdout, launches by kernel) of one cli.main call, with every
+    launch count zeroed just before it."""
+    import io
+    from gunrockinst_tpu_torch import cli
+    for mod in KERNEL_MODULES.values():
+        mod.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(list(argv))
+    return rc, out.getvalue(), {k: mod.launches for k, mod in
+                                KERNEL_MODULES.items()}
+
+
+def host_phase(csr20, src, ref_labels, card, counts):
+    """Phase 29: the CLI on the card at rmat-s16 (validation on), the
+    flat API against the primitives' own calls, and SteppedBfs
+    (slice_depth=2) at rmat-s20 against phase 4's labels.  The kernel
+    launches of each CLI subcommand go into `counts`."""
+    from gunrockinst_tpu_torch import api
+    from gunrockinst_tpu_torch.utils.instrument import SteppedBfs
+    t0 = phase("29 cli, api and SteppedBfs on the card")
+    for args, kernels, also in CLI_RUNS:
+        t1 = time.perf_counter()
+        rc, out, launched = run_cli(args + CLI_ARGS)
+        wall = (time.perf_counter() - t1) * 1e3
+        name = f"cli {' '.join(args)}"
+        if rc != 0 or f"{args[0]} CORRECTNESS: PASSED" not in out:
+            raise AssertionError(f"{name}: rc {rc}\n{out}")
+        extra = {k: c for k, c in launched.items()
+                 if c and k not in kernels + also}
+        missing = [k for k in kernels if not launched[k]]
+        if extra or missing:
+            raise AssertionError(f"{name}: launched {launched}, expected "
+                                 f"only {kernels}")
+        for k in kernels:
+            counts.setdefault(k, {})[name] = launched[k]
+        block = next(line for line in out.splitlines()
+                     if line.startswith(f"[{args[0]}] elapsed"))
+        print(f"  {name}: PASSED; {block}; launches "
+              f"{ {k: launched[k] for k in kernels} }; {wall:.1f} ms with "
+              f"graph and oracle [{card}]", flush=True)
+    csr16 = rmat_graph(16, 16, undirected=True, seed=0)
+    ro, ci = csr16.row_offsets, csr16.col_indices
+    w = np.random.default_rng(SEED).integers(1, 64, len(ci)).astype(
+        np.float32)
+    wcsr16 = CsrGraph.from_arrays(ro, ci, w)
+    s = sources(csr16)[0]
+    with no_kernel_launch("api"):
+        t1 = time.perf_counter()
+        pairs = [
+            ("bfs", api.bfs(ro, ci, s)[0],
+             bfs.run(csr16, s, mark_preds=False).labels),
+            ("sssp", api.sssp(ro, ci, w, s)[0],
+             sssp.run(wcsr16, s, mark_preds=False).dist),
+            ("cc", api.cc(ro, ci)[0], cc.run(csr16).component_ids),
+            ("bc", api.bc(ro, ci, src=s), bc.run(csr16, src=s).bc_values),
+            ("pagerank", api.pagerank(ro, ci)[1], pr.run(csr16).sorted_ranks),
+        ]
+        from gunrockinst_tpu_torch.primitives import topk
+        r = topk.run(csr16, 10)
+        pairs += [(f"topk {i}", a, b) for i, (a, b) in enumerate(zip(
+            api.topk(ro, ci, 10), (r.node_ids, r.centralities, r.in_degrees,
+                                   r.out_degrees)))]
+        wall = (time.perf_counter() - t1) * 1e3
+    for name, a, b in pairs:
+        if not np.array_equal(a, b):
+            raise AssertionError(f"api.{name} differs from the primitive's "
+                                 "own call")
+    print(f"  api bfs, sssp, cc, bc, pagerank, topk at rmat-s16: equal to "
+          f"the primitives' own calls ({wall:.1f} ms for both) [{card}]",
+          flush=True)
+    with no_kernel_launch("SteppedBfs"):
+        stepped = SteppedBfs(csr20, src, slice_depth=2)
+        labels, wall = timed_ms(stepped.run_to_completion)
+    if not np.array_equal(labels, ref_labels):
+        raise AssertionError("SteppedBfs labels differ from phase 4's")
+    print(f"  SteppedBfs slice_depth=2 at rmat-s20: phase 4's labels; "
+          f"{wall:.3f} ms; tracer {stepped.tracer.summary()} [{card}]",
+          flush=True)
+    done(t0)
+
+
 def path_graph(n):
     """The undirected path 0 - 1 - ... - (n-1)."""
     u = np.arange(n - 1, dtype=np.int64)
@@ -2253,6 +2644,7 @@ def main() -> int:
         raise AssertionError("bfs.run labels differ from the oracle")
     if not np.array_equal(res.preds, ref_preds):
         raise AssertionError("bfs.run preds differ from the oracle")
+    preds_memory_line(csr20, src, res.labels, ref_preds, card)
     done(t0, "labels and preds exact")
 
     t0 = phase(f"5 get_fused_bfs_multi reps={MULTI_K}, rmat-s20")
@@ -2339,9 +2731,27 @@ def main() -> int:
     cc_xla_phase(csr20, card)
     rank_xla_phase(graphs, pr_ref, rank_refs, wtf_refs, card)
     bc_xla_phase(graphs, bc_refs, csr14, card)
+    # ---- the last primitives and sampling: no kernel may launch -------
+    topk_phase(csr20, card)
+    dobfs_phase(csr20, src, ref_labels, ref_preds, card)
+    mis_phase(csr20, card)
+    mst_phase(sssp_planes["weights 1..63"][0], card)
+    sampling_phase(csr20, card)
+    # ---- the host surfaces: one count window per CLI subcommand -------
+    cli_counts = {}
+    host_phase(csr20, src, ref_labels, card, cli_counts)
+    by_path.update(cli_counts["value_step"])
+    launches["value_step"] = sum(by_path.values())
+    spmv_counts.update(cli_counts["spmv"])
+    launches["spmv"] = sum(spmv_counts.values())
+    mega_counts = {"bfs.run auto, get_fused_bfs_multi":
+                   launches["mega_step"], **cli_counts["mega_step"]}
+    launches["mega_step"] = sum(mega_counts.values())
+    # ---- end of the host surfaces -------------------------------------
 
     for name, count in {**launches, **by_path, **chain_counts,
-                        **touch_counts, **spmv_counts}.items():
+                        **touch_counts, **spmv_counts,
+                        **mega_counts}.items():
         if count <= 0:
             raise AssertionError(f"kernel or path {name} had no launch on "
                                  "the main path")
@@ -2358,7 +2768,7 @@ def main() -> int:
         work="all levels of one rmat-s20 search from the top-degree "
              "vertex, run as the main path runs it",
         directions=[r["direction"] for r in timing],
-        ms_by_search=step_times)]
+        ms_by_search=step_times, launches_by_path=mega_counts)]
     pr_row = next(r for r in value_rows if r["name"] == "pr")
     line.append(dict(
         name="value_step", **KERNELS["value_step"],

@@ -11,7 +11,10 @@ Entry points take ``device=None``, which means the CUDA card; see
 `device.resolve_device`.  Each primitive's default mode runs the
 operator layer (`ops/advance.py`, `filter.py`, `frontier.py`,
 `priority.py`, `segment.py`) on a padded `DeviceGraph`, as the
-reference's default XLA modes do.
+reference's default XLA modes do.  The host surfaces are `api.py` (raw
+CSR arrays in, NumPy arrays out), `cli.py` (`python -m
+gunrockinst_tpu_torch.cli`) and `utils/` (its flags; the INST layer's
+tracer, stepped searches and checkpoints).
 """
 
 from gunrockinst_tpu_torch.device import resolve_device  # noqa: F401

@@ -214,7 +214,8 @@ class MegaStepper:
         self._cpu_direction = None
 
     def edge_dst(self) -> torch.Tensor:
-        """Destination of every CSC edge (for the plain version)."""
+        """Destination of every CSC edge, cached (for the plain versions;
+        `SearchGraph.min_preds` makes its own int32 one per call)."""
         if self._dst is None:
             self._dst = torch.repeat_interleave(
                 torch.arange(self.n, device=self.device),

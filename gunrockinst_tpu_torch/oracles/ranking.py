@@ -1,7 +1,8 @@
-"""PageRank, HITS and SALSA host references.
+"""PageRank, HITS, SALSA and TopK host references.
 
 Copies of the JAX package's `oracles/ranking.py::remove_dangling_degrees`,
-`pagerank_reference`, `hits_reference` and `salsa_reference`.  They
+`pagerank_reference`, `hits_reference`, `salsa_reference` and
+`topk_degree_reference`.  They
 reproduce the reference's *exact* update rules (unnormalized PR with
 rank init (1-delta), gunrock/app/pr/pr_problem.cuh:407).
 """
@@ -130,3 +131,16 @@ def salsa_reference(csr: CsrGraph, max_iter: int = 50
         hub[outdeg == 0] = 0.0
         auth[indeg == 0] = 0.0
     return hub.astype(np.float32), auth.astype(np.float32)
+
+
+def topk_degree_reference(csr: CsrGraph, k: int):
+    """Degree-centrality top-k (topk_enactor.cuh:245-275): centrality =
+    in-degree + out-degree, sorted descending; ties broken by vertex id
+    (the deterministic tie-break the primitive's sort uses)."""
+    n = csr.num_nodes
+    outdeg = np.diff(csr.row_offsets).astype(np.int64)
+    indeg = np.bincount(csr.col_indices, minlength=n)
+    cent = indeg + outdeg
+    order = np.lexsort((np.arange(n), -cent))[:k]
+    return (order.astype(np.int32), cent[order].astype(np.int32),
+            indeg[order].astype(np.int32), outdeg[order].astype(np.int32))

@@ -1,10 +1,11 @@
 """Primitive scaffolding: graph coercion, result stats, timing.
 
 Counterpart of the JAX package's `primitives/base.py`.  `Stats` holds
-the reference's per-search numbers (tests/bfs/test_bfs.cu:210-235):
-elapsed ms, search depth, nodes and edges visited, total_queued.
-`Stats.route` names the route a search took, so that a fallback cannot
-hide.
+the reference's per-search numbers and prints its metric block
+(tests/bfs/test_bfs.cu:210-235, app/bfs/bfs_app.cu:93-120): elapsed ms,
+M-Edges/s, search depth, avg duty, nodes and edges visited,
+total_queued, redundant work %.  `Stats.route` names the route a search
+took, so that a fallback cannot hide; it is not printed.
 """
 
 from __future__ import annotations
@@ -55,6 +56,9 @@ class Stats:
     nodes_visited: int = 0
     edges_visited: int = 0
     total_queued: int = 0
+    # device-time share of wall time, 0..1 (the reference's avg CTA
+    # duty, kernel_runtime_stats.cuh:226-290); < 0 = not measured
+    avg_duty: float = -1.0
     # search route: "step8" (the step kernel with 8 label planes),
     # "chain" (the whole search again in one launch of the chain kernel
     # with bit_length(n+1) planes, after the 8-plane pass reached depth
@@ -63,6 +67,40 @@ class Stats:
     # layer's mode ("dense", "sparse", "auto"; SSSP's "sparse",
     # "delta", "bellman")
     route: str = ""
+
+    @property
+    def m_teps(self) -> float:
+        """Millions of traversed edges per second (test_bfs.cu:215)."""
+        if self.elapsed_ms <= 0:
+            return 0.0
+        return self.edges_visited / (self.elapsed_ms * 1000.0)
+
+    @property
+    def redundant_pct(self) -> float:
+        """Redundant work % (app/bfs/bfs_app.cu:115): queued minus
+        useful, over useful; 0 when total_queued was not tracked, and
+        never below 0 (a vertex-granular queue of the stepped searches
+        can be smaller than the edge count)."""
+        if self.edges_visited == 0 or self.total_queued == 0:
+            return 0.0
+        return max(0.0, 100.0 * (self.total_queued - self.edges_visited)
+                   / self.edges_visited)
+
+    def display(self, name: str) -> str:
+        """Print, and return, the reference's metric block
+        (app/bfs/bfs_app.cu:93-120), as the JAX package prints it."""
+        out = (f"[{name}] elapsed: {self.elapsed_ms:.4f} ms, rate: "
+               f"{self.m_teps:.4f} MiEdges/s, search_depth: "
+               f"{self.search_depth}")
+        if self.avg_duty >= 0:
+            out += f", avg_duty: {100.0 * self.avg_duty:.2f}%"
+        out += (f", nodes_visited: {self.nodes_visited}, "
+                f"edges_visited: {self.edges_visited}, "
+                f"total_queued: "
+                f"{self.total_queued or self.edges_visited}, "
+                f"redundant_work: {self.redundant_pct:.2f}%")
+        print(out)
+        return out
 
 
 def sync(device: torch.device) -> None:

@@ -156,16 +156,21 @@ class SearchGraph:
         least input id of the in-neighbours u with achieves(u, v), -1
         where there is none (the oracles' min-id tie-break).  achieves
         takes the search ids of every CSC edge's source and destination,
-        int64 on the device, and returns a bool per edge; the device
-        CSC is the only edge list read."""
+        int32 on the device, and returns a bool per edge; the device
+        CSC is the only edge list read.  The sources are the stepper's
+        own `in_src` and the destinations an int32 array made for this
+        call, so no per-edge copy outlives it."""
         st = self.stepper
-        u, v = st.in_src.long(), st.edge_dst()
+        u = st.in_src
+        v = torch.repeat_interleave(st.offsets[1:] - st.offsets[:-1],
+                                    output_size=u.shape[0])
         ids = self.to_internal(torch.arange(self.n, dtype=torch.int32,
                                             device=self.device), INF32)
         preds = torch.full((self.n_words * 32,), INF32, dtype=torch.int32,
                            device=self.device)
-        preds.scatter_reduce_(0, v, torch.where(achieves(u, v), ids[u],
-                                                INF32), "amin")
+        preds.index_reduce_(0, v, torch.where(achieves(u, v), ids[u],
+                                              INF32), "amin")
+        del v
         preds = torch.where(preds == INF32, -1, preds)
         return self.to_input(preds).cpu().numpy()
 
@@ -431,8 +436,9 @@ def _preds(csr: CsrGraph, dev: torch.device, labels_np: np.ndarray,
     labels = g.to_internal(torch.from_numpy(labels_np).to(g.device), INF32)
 
     def achieves(u, v):
-        lu = labels[u].long()
-        return (lu != INF32) & (labels[v].long() == lu + 1)
+        # lu + 1 wraps at INF32, where the first test already fails
+        lu = labels[u]
+        return (lu != INF32) & (labels[v] == lu + 1)
 
     preds = g.min_preds(achieves)
     preds[src] = -1

@@ -217,6 +217,18 @@ class SsspResult:
     stats: Stats
 
 
+def default_delta(graph: DeviceGraph) -> float:
+    """The near/far split granularity of mode "delta": the mean edge
+    weight in the reference's arithmetic (sssp.py:298-302), a float32
+    sum over the m_pad weights and a float32 divide by max(m, 1), at
+    least 1e-6.  The sum's order is each library's own: where the
+    float32 sum is not exact (weights that are not small integers, or a
+    total above 2^24), its last bit can differ from the reference's."""
+    mean_w = graph.edge_w.sum() / torch.tensor(max(graph.m, 1),
+                                               dtype=torch.float32)
+    return max(float(mean_w), 1e-6)
+
+
 def run(graph: GraphLike, src: int, delta: Optional[float] = None,
         mode: str = "sparse", mark_preds: bool = True,
         device: DeviceLike = None) -> SsspResult:
@@ -240,9 +252,7 @@ def run(graph: GraphLike, src: int, delta: Optional[float] = None,
     if bool((g.edge_w < 0).any()):
         raise ValueError("SSSP requires non-negative edge weights")
     if delta is None:
-        # the near/far split granularity: the mean edge weight
-        mean_w = float(g.edge_w.sum(dtype=torch.float64)) / max(g.m, 1)
-        delta = max(mean_w, 1e-6)
+        delta = default_delta(g)
     sssp_kernel(g, src, delta, mode=mode)       # warm-up
     sync(dev)
     with Timer() as t:
