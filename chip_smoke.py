@@ -2,10 +2,13 @@
 """Smoke run of the PyTorch/CUDA port (gunrockinst_tpu_torch) on one card.
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
-    python3 chip_smoke.py --variants DIR [bfs]   # only the timings of the
-                                    # BFS kernels and (without `bfs`) the
-                                    # sweep variants below, on the kernels
-                                    # of checkout DIR
+    python3 chip_smoke.py --variants DIR [bfs|sweeps|walls]   # only
+                                    # the timings of the BFS kernels (not
+                                    # with `sweeps`) and the sweep
+                                    # variants below (not with `bfs`), or
+                                    # (`walls`) the wall times of the
+                                    # value-sweep entry points, on the
+                                    # kernels of checkout DIR
 
 Phases, each of which raises on failure:
 
@@ -49,29 +52,44 @@ Phases, each of which raises on failure:
 
   6. value   - at rmat-s14 and rmat-s20, one sweep of the value kernel
                in each of its five configurations (sssp_w, sssp_c, cc,
-               pr, bc_fwd) on seeded inputs equals its plain PyTorch
-               version: the min configurations bit for bit, changed map
-               and count included; the add configurations (pr ungated,
-               bc_fwd gated on half the sources) allclose (rtol 1e-5,
-               atol 1e-6) and bitwise equal between two kernel runs.
-               At s20 each configuration is timed (CUDA events, median
-               of repeats) for the kernel and the plain version, beside
-               its bound; for pr also one library call for the same
-               sums, a CSR SpMV.  Then each configuration on the
+               pr, bc_fwd) on seeded inputs, with the route left to the
+               sweep, equals its plain PyTorch version: the min
+               configurations bit for bit, changed map and count
+               included; the add configurations (pr ungated, bc_fwd
+               gated on half the sources) allclose (rtol 1e-5, atol
+               1e-6) and bitwise equal between two kernel runs.  At s20
+               each configuration's dense route is timed (CUDA events,
+               median of repeats) for the kernel and the plain version,
+               beside its bound; for pr also one library call for the
+               same sums, a CSR SpMV.  Then each configuration on the
                edge-case graphs (`edge_graphs`: a star whose centre holds
                every in-edge, a random graph, both with n not a multiple
                of 32): equal to the plain version.  Then, at s20, each
-               configuration again at every long-list threshold of
-               LONG_DEGREES: equal to the plain version, and its kernel
-               timed;
+               configuration's dense route again at every long-list
+               threshold of LONG_DEGREES: equal to the plain version, and
+               its kernel timed.  Then, at s20, each gated configuration
+               (ROUTED) with one active vertex (the top out-degree, as
+               SSSP's first round) and ACTIVE_SHARES of its vertices
+               active, through each route it may take (dense, push for
+               a min, touched), forced: equal to that route's plain
+               version (bitwise for min; allclose and two calls bitwise
+               equal for add) and bitwise equal to the dense kernel;
+               each timed beside its route's bound and the sweep's, with
+               the route the rule would take;
   7. sssp    - sssp.run(csr, top-degree src, mode="planes") at rmat-s20,
                unweighted and with integer weights 1..63: distances
                equal scipy's Dijkstra cast to f32, bit for bit; preds
                of one run at rmat-s14 equal the NumPy oracle's; the
                unweighted run's rounds are replayed with no host sync
-               for the card's busy time;
+               for the card's busy time; then each run's rounds are
+               recorded in one more call and replayed through every
+               route, forced, and with the route left to the card
+               (`replay_routes`): every route's bits equal the dense
+               route's, and each round is timed per route beside the
+               route the run took;
   8. cc      - cc.run(csr, mode="planes") at rmat-s20: component ids equal
-               the minimum vertex id of each scipy component;
+               the minimum vertex id of each scipy component; its rounds
+               replayed through every route as in phase 7;
   9. pr      - pr.run(csr, max_iter=5, mode="planes") at rmat-s20 is
                allclose (rtol 1e-4, atol 1e-6) to the NumPy oracle, and
                two calls give the same bits.
@@ -136,7 +154,10 @@ rmat-s20 ef16, seed 42, whose reverse CSC is a second upload:
  18. bc      - bc.run(src=top-degree, mode="planes"): labels equal
                bc_reference_fast's, values allclose (rtol 1e-4, atol
                1e-6), sigma equal below 2^24 and allclose (rtol 1e-6)
-               above, two calls bitwise equal.
+               above, two calls bitwise equal; the forward and reverse
+               sweeps of one more call replayed through every route as
+               in phase 7 (the BC rounds: phase 23 runs BC's default
+               mode, which launches no kernel).
 
 Phases 19-23 drive the default modes, the operator layer on a padded
 DeviceGraph (ops/advance.py, segment.py, frontier.py, priority.py), on
@@ -206,7 +227,11 @@ undirected, seed 42, each call inside the same no-kernel window:
 Launch counts of the BFS kernel are zeroed just before phase 4 and read
 just after phase 5; those of the value kernel are zeroed just before
 and read just after each entry-point call of phases 7-9 (sssp, sssp
-weighted, cc, pr), so the replay and the rmat-s14 check do not count;
+weighted, cc, pr), so the replays and the rmat-s14 check do not count,
+and with them the card's tally of the value kernel's launches per route
+(`value.route_launches`, printed per path for phases 7-9 and 15-18; the
+sum must equal the launches, and sssp, sssp weighted, cc and both bc
+paths must have pushed or touched at least once);
 the chain kernel's around phase 11's bfs.run, the touched sweep's
 around each entry-point call of phase 13, the pull-SpMV's around phase
 15's pr.run calls, and the value kernel's again around each
@@ -231,11 +256,18 @@ destinations.  Both: for each word that gains a vertex, the vw' word and
 the label plane word of each set bit of d written.  Operations: three
 per edge read.
 
-A value sweep's bound counts the CSC offsets and in-edge ids read
-whole, the weights of the edges whose source is active (sssp_w), the
-values read and written once, the ch map read (gated configurations)
-and the changed map written; operations: one gate test per in-edge and
-two per active in-edge (add, combine).
+A value sweep's bound is the least of the bounds of the routes it may
+take (`route_work`), as a level's is.  Dense (the pull): the CSC offsets
+and in-edge ids read whole, the weights of the edges whose source is
+active (sssp_w), the values read and written once, the ch map read
+(gated configurations) and the changed map written; operations: one
+gate test per in-edge and two per active in-edge (add, combine).  Push
+(a min): one out-offset per active source and its out-edge ids, their
+weights (sssp_w), the values read and written once, ch read and the
+changed map written; two operations per active out-edge.  Touched: the
+push's bytes plus the in-edge ids and offsets of the touched words; the
+push's operations plus a gate test per in-edge of a touched word and
+two per active in-edge.
 
 A chain search's bound counts the offset and out-edge ids of each
 visited vertex read once and the planes, visited words and depth
@@ -254,7 +286,9 @@ touched sweep with every frontier bit set (the least walk) and with none
 (every id of the CSC).  `--variants DIR` runs only timings on the
 kernels of the checkout at DIR (this one, or an unpacked earlier commit,
 so that two versions are timed on one card in one call), through the
-wrappers' calls that every version of the port has: the step kernel per
+wrappers' calls that every version of the port has (the value sweeps by
+their dense route where the wrapper has routes, each printed with a
+digest of its output bits, which must match across checkouts): the step kernel per
 level of the four rmat searches of phase 3 (and forced to push and to
 pull, where the wrapper has a direction) and on a level with no
 candidate; at grid-1024^2 the 8-plane host level loop (wall time, and
@@ -263,9 +297,10 @@ call, and the time between CUDA events around the step; then its
 Python functions by cProfile); the chain kernel on the 2045-vertex path,
 at grid-1024^2, on the 112^3 lattice (wide levels) and on rmat-s18 with
 a 400-vertex tail (a wide core, then a thin tail), in each layout where
-the wrapper has a choice, with the layout the route would take; then,
-unless `bfs` is given, the s20 sweeps as they are and on those inputs.
-It prints lines, no result.
+the wrapper has a choice, with the layout the route would take (unless
+`sweeps` is given); then, unless `bfs` is given, the s20 sweeps as they
+are and on those inputs.  `walls` times only the entry points that the
+value kernel carries (`walls`).  It prints lines, no result.
 
 Phases 5 and 7 also replay their searches (levels, rounds) with no host
 sync in between, queued behind a device sleep, so that CUDA events time
@@ -277,6 +312,7 @@ from __future__ import annotations
 
 import contextlib
 import faulthandler
+import inspect
 import json
 import subprocess
 import sys
@@ -351,6 +387,8 @@ VALUE_CONFIGS = {
     "bc_fwd": dict(mode="add", f32=True, use_active=True),   # BC's sweeps
 }
 LONG_DEGREES = (32, 64, 128, 256, 512)   # phase 6's threshold sweep, s20
+ROUTED = ("sssp_w", "sssp_c", "cc", "bc_fwd")   # gated: a route to choose
+ACTIVE_SHARES = (0.0001, 0.001, 0.01, 0.1, 0.5, 1.0)   # phase 6's
 TOUCH_CAP = 16384      # bytes: a frontier staging budget below n_words,
                        # so the touched sweep's L2 path runs too
 STAR_N = 100_003       # the edge-case graphs (edge_graphs): n % 32 != 0
@@ -680,8 +718,13 @@ def time_levels(g, levels, reach, psrc, label, card):
 
 def value_case(g, name, rng, **kw):
     """(stepper, vals, ch) of one configuration on g's device CSC, with
-    seeded inputs (`value_inputs`); `kw` goes to the stepper."""
+    seeded inputs (`value_inputs`); `kw` goes to the stepper.  A gated
+    stepper without per-edge weights walks g's out-edge CSR, as the
+    main path's do."""
     st = g.stepper
+    cfg = VALUE_CONFIGS[name]
+    if name != "sssp_w" and cfg.get("use_active", True):
+        kw.setdefault("out_edges", g.reverse)
     return value_inputs(st.offsets, st.in_src, g.n, name, rng, **kw)
 
 
@@ -753,12 +796,13 @@ def on_device(col_offsets, in_src, dev):
                  .to(dev) for a in (col_offsets, in_src))
 
 
-def compare_value(stepper, vals, ch, label):
-    """One sweep through the kernel and the plain version; raises on a
-    difference.  Returns the largest |kernel - plain| of the values."""
-    got = stepper.sweep(vals, ch)
+def compare_value(stepper, vals, ch, label, route=None):
+    """One sweep through the kernel (by `route`, or the one it picks)
+    and the plain version of that route (dense when picked); raises on
+    a difference.  Returns the largest |kernel - plain| of the values."""
+    got = stepper.sweep(vals, ch, route=route)
     torch.cuda.synchronize()
-    want = stepper.reference(vals, ch)
+    want = stepper.reference(vals, ch, route or "dense")
     dtype = torch.float32 if stepper.f32 else torch.int32
     x, y = got[0].view(dtype), want[0].view(dtype)
     both = torch.isfinite(x) & torch.isfinite(y) if stepper.f32 else \
@@ -776,7 +820,7 @@ def compare_value(stepper, vals, ch, label):
             raise AssertionError(f"{label}: kernel sums differ from the "
                                  f"plain version beyond rtol 1e-5, atol "
                                  f"1e-6 (max |diff| {err})")
-        again = stepper.sweep(vals, ch)[0]
+        again = stepper.sweep(vals, ch, route=route)[0]
         if not torch.equal(again, got[0]):
             raise AssertionError(f"{label}: two kernel runs differ")
         tol = "allclose rtol 1e-5 atol 1e-6, two runs bitwise"
@@ -785,27 +829,66 @@ def compare_value(stepper, vals, ch, label):
     return err
 
 
-def value_work(stepper, vals, ch):
-    """(bytes, operations) one sweep needs on these inputs."""
-    n, m = stepper.n, stepper.in_src.numel()
+def routes_of(stepper):
+    """The routes a stepper may take."""
+    if not stepper.use_active:
+        return ("dense",)
+    return tuple(r for r in value.ROUTES if r != "push" or stepper.push_ok)
+
+
+def route_work(stepper, vals, ch):
+    """{route: (bytes, operations)} one sweep needs on these inputs, for
+    each route the stepper may take.  Dense (the pull): the CSC offsets
+    and in-edge ids read whole, the weights of the in-edges whose
+    source is active (per-edge weights), the values read and written
+    once, the ch map read (gated) and the changed map written; one gate
+    test per in-edge (gated) and two operations per active in-edge.
+    Push: one out-offset per active source and its out-edge ids, their
+    weights (per-edge), the values read and written once, ch read and
+    the changed map written; two operations per active out-edge.
+    Touched: the push's bytes plus the in-edge ids and the offsets of
+    the touched words; the push's operations plus one gate test per
+    in-edge of a touched word and two per active in-edge (every active
+    in-edge lands in a touched word)."""
+    n, m = stepper.n, stepper.m
     n_pad, n_words = stepper.n_pad, stepper.n_words
-    if stepper.use_active:
-        active = int(unpack_bitmap(ch, n_pad)[stepper.in_src.long()].sum())
-    else:
-        active = m
-    nbytes = 4 * ((n + 1) + m + 2 * n_pad + n_words + 1)
+    gated = stepper.use_active
+    active_in = (int(unpack_bitmap(ch, n_pad)[stepper.in_src.long()].sum())
+                 if gated else m)
+    pull = 4 * ((n + 1) + m + 2 * n_pad + n_words + 1
+                + (n_words if gated else 0))
     if stepper.weights is not None:
-        nbytes += 4 * active
-    if stepper.use_active:
-        nbytes += 4 * n_words
-    ops = (m if stepper.use_active else 0) + 2 * active
-    return nbytes, ops
+        pull += 4 * active_in
+    work = {"dense": (pull, (m if gated else 0) + 2 * active_in)}
+    if not gated:
+        return work
+    out_off, out_dst, _ = stepper.out_csr()
+    count, edges = value.active_stats(out_off, ch)
+    push = 4 * (count + edges + 2 * n_pad + 2 * n_words + 2)
+    if stepper.weights is not None:
+        push += 4 * edges
+    if stepper.push_ok:
+        work["push"] = (push, 2 * edges)
+    words = torch.nonzero(value.touched_words(out_off, out_dst, ch)).squeeze(1)
+    off = stepper.offsets
+    t_edges = int((off[torch.clamp(32 * words + 32, max=n)]
+                   - off[torch.clamp(32 * words, max=n)]).sum())
+    work["touched"] = (push + 4 * (t_edges + 33 * words.numel()),
+                       2 * edges + t_edges + 2 * active_in)
+    return work
+
+
+def value_work(stepper, vals, ch):
+    """(bytes, operations) of one sweep on these inputs: those of the
+    route whose bound is least (`route_work`)."""
+    return min(route_work(stepper, vals, ch).values(),
+               key=lambda w: bound_ms(*w))
 
 
 def time_value(stepper, vals, ch, name, card):
     """Kernel, plain and (pr) library ms of one sweep, and its bound."""
     out = torch.empty_like(vals)
-    k_ms = event_ms(lambda: stepper.sweep(vals, ch, out=out),
+    k_ms = event_ms(lambda: stepper.sweep(vals, ch, out=out, route="dense"),
                     lambda: None, 20)
     p_ms = event_ms(lambda: stepper.reference(vals, ch), lambda: None, 5)
     lib_ms = None
@@ -828,7 +911,7 @@ def time_value(stepper, vals, ch, name, card):
     nbytes, ops = value_work(stepper, vals, ch)
     row = dict(name=name, bytes=nbytes, ops=ops, ms=k_ms, plain_ms=p_ms,
                library_ms=lib_ms, bound_ms=bound_ms(nbytes, ops))
-    print(f"  {name}: {nbytes} B, kernel {k_ms * 1e3:.1f} us (earlier "
+    print(f"  {name}: {nbytes} B, dense kernel {k_ms * 1e3:.1f} us (earlier "
           f"runs: {EARLIER_US[name]} us; one source "
           f"{one_source_ms(stepper, vals, ch, name) * 1e3:.1f} us), plain "
           f"{p_ms * 1e3:.1f} us, bound {row['bound_ms'] * 1e3:.2f} us, "
@@ -849,7 +932,8 @@ def one_source_ms(stepper, vals, ch, name):
     ch1 = ch.clone()
     ch1.view(-1)[0] |= 1
     out = torch.empty_like(vals)
-    return event_ms(lambda: one.sweep(vals, ch1, out=out), lambda: None, 20)
+    return event_ms(lambda: one.sweep(vals, ch1, out=out, **dense_kw(one)),
+                    lambda: None, 20)
 
 
 def replay_rounds_ms(stepper, vals, ch, rounds, want):
@@ -915,13 +999,164 @@ def long_degree_sweep(cases, card):
                                     weights=base.weights, long_degree=t,
                                     **VALUE_CONFIGS[name])
             err = max(err, compare_value(
-                st, vals, ch, f"s20 {name} long_degree {t}"))
+                st, vals, ch, f"s20 {name} long_degree {t}", route="dense"))
             table[name][t] = event_ms(
-                lambda: st.sweep(vals, ch, out=out), lambda: None, 20)
+                lambda: st.sweep(vals, ch, out=out, route="dense"),
+                lambda: None, 20)
         print(f"  {name} kernel us by long-list threshold: " + ", ".join(
             f"{t}: {ms * 1e3:.1f}" for t, ms in table[name].items())
             + f" [{card}]", flush=True)
     return err, table
+
+
+def dense_kw(stepper):
+    """{"route": "dense"} where the stepper's sweep takes a route (an
+    earlier checkout's does not: its one route is the dense pull)."""
+    if "route" in inspect.signature(stepper.sweep).parameters:
+        return {"route": "dense"}
+    return {}
+
+
+def share_label(share):
+    return "1 vertex" if share is None else f"{100 * share:g}%"
+
+
+def route_phase(g, card):
+    """Phase 6, routes: each gated configuration at rmat-s20 with one
+    active vertex (the top out-degree, as SSSP's first round) and
+    ACTIVE_SHARES of the vertices active, through each route it may
+    take, forced: equal to the route's plain version (bitwise for min;
+    allclose and two calls bitwise equal for add) and bitwise equal to
+    the dense kernel's result; each timed beside its route's bound and
+    the sweep's (the least of its routes').  Returns (largest |kernel -
+    plain|, {configuration and share: row})."""
+    dev = g.device
+    rng = np.random.default_rng(SEED + 6)
+    out_off = g.reverse()[0]
+    hub = int(torch.argmax(out_off[1:] - out_off[:-1]))
+    err, table = 0.0, {}
+    for name in ROUTED:
+        st, vals, _ = value_case(g, name, rng)
+        out = torch.empty_like(vals)
+        for share in (None, *ACTIVE_SHARES):
+            mask = np.zeros(g.n, bool)
+            if share is None:
+                mask[hub] = True
+            else:
+                mask = rng.random(g.n) < share
+            ch = torch.from_numpy(words_from_mask(mask, g.n_words)).to(dev)
+            label = f"s20 {name} {share_label(share)} active"
+            count, edges = st.stats(ch)
+            work = route_work(st, vals, ch)
+            row = dict(active=count, edges=edges, rule=st.choose_route(edges),
+                       bound_ms=min(bound_ms(*w) for w in work.values()),
+                       ms={}, route_bound_ms={})
+            dense = st.sweep(vals, ch, route="dense")
+            for r in routes_of(st):
+                err = max(err, compare_value(st, vals, ch, f"{label}, {r}",
+                                             route=r))
+                got = st.sweep(vals, ch, route=r)
+                if not all(torch.equal(a, b) for a, b in zip(got, dense)):
+                    raise AssertionError(f"{label}: the {r} kernel's bits "
+                                         "differ from the dense kernel's")
+                row["ms"][r] = event_ms(
+                    lambda: st.sweep(vals, ch, out=out, route=r),
+                    lambda: None, 20)
+                row["route_bound_ms"][r] = bound_ms(*work[r])
+            table[f"{name} {share_label(share)}"] = row
+            best = min(row["ms"], key=row["ms"].get)
+            print(f"  {label}: {count} sources, {edges} out-edges "
+                  f"({100 * edges / st.m:.4f}% of m); "
+                  + ", ".join(f"{r} {ms * 1e3:.1f} us (bound "
+                              f"{row['route_bound_ms'][r] * 1e3:.2f})"
+                              for r, ms in row["ms"].items())
+                  + f"; fastest {best}, the rule takes {row['rule']}; "
+                  f"sweep bound {row['bound_ms'] * 1e3:.2f} us [{card}]",
+                  flush=True)
+    return err, table
+
+
+@contextlib.contextmanager
+def recording(stepper, log):
+    """While the block runs, every sweep that `stepper` launches appends
+    (its values, its ch, the route it took) to `log`; reading the route
+    is a host sync, so a recorded call is not a timed one."""
+    inner = stepper._launch
+
+    def rec(vals, ch, *args):
+        kept = (vals.clone(), None if ch is None else ch.clone())
+        res = inner(vals, ch, *args)
+        log.append((*kept, stepper.last_route()))
+        return res
+
+    stepper._launch = rec
+    try:
+        yield log
+    finally:
+        del stepper._launch
+
+
+def replay_routes(stepper, log, label, card):
+    """Each recorded sweep again through every route the stepper may
+    take, forced, and with the route left to the sweep (decided on the
+    card, a stats kernel first): every route's bits equal the dense
+    kernel's; per round the median ms of each (CUDA events, 10 calls).
+    Returns {"rounds": [...], totals of the route taken, the dense route
+    and the best route per round}."""
+    rows = []
+    out = torch.empty_like(log[0][0])
+    for i, (vals, ch, taken) in enumerate(log):
+        dense = stepper.sweep(vals, ch, route="dense")
+        ms = {}
+        for r in (*routes_of(stepper), None):
+            got = stepper.sweep(vals, ch, route=r)
+            if not all(torch.equal(a, b) for a, b in zip(got, dense)):
+                raise AssertionError(f"{label} round {i}: route {r} "
+                                     "differs from the dense route")
+            ms[r or "auto"] = event_ms(
+                lambda: stepper.sweep(vals, ch, out=out, route=r),
+                lambda: None, 10)
+        count, edges = stepper.stats(ch)
+        rows.append(dict(active=count, edges=edges, taken=taken, ms=ms))
+        print(f"  {label} round {i + 1}: {count} active, {edges} out-edges "
+              f"({100 * edges / stepper.m:.4f}% of m), took {taken}: "
+              + ", ".join(f"{r} {t * 1e3:.1f} us" for r, t in ms.items())
+              + f" [{card}]", flush=True)
+    totals = dict(
+        taken_ms=sum(r["ms"][r["taken"]] for r in rows),
+        dense_ms=sum(r["ms"]["dense"] for r in rows),
+        best_ms=sum(min(t for k, t in r["ms"].items() if k != "auto")
+                    for r in rows))
+    print(f"  {label}: {len(rows)} sweeps, the routes taken "
+          f"{totals['taken_ms']:.4f} ms, dense only {totals['dense_ms']:.4f}"
+          f" ms, the best route per round {totals['best_ms']:.4f} ms "
+          f"[{card}]", flush=True)
+    return dict(rounds=rows, **totals)
+
+
+class RouteWindow:
+    """The value kernel's launches of one entry-point call, in all and
+    per route (the card's tally): zeroed when entered, read when left,
+    into launches[path] and routes[path]; every launch has one route."""
+
+    def __init__(self, path, launches, routes):
+        self.path, self.launches, self.routes = path, launches, routes
+
+    def __enter__(self):
+        value.launches = 0
+        value.reset_route_launches()
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is not None:
+            return False
+        self.launches[self.path] = value.launches
+        by_route = value.route_launches()
+        self.routes[self.path] = by_route
+        if sum(by_route.values()) != value.launches:
+            raise AssertionError(f"{self.path}: {value.launches} sweeps "
+                                 f"launched, the card tallied {by_route}")
+        return False
 
 
 def value_phase(csrs, dev, card):
@@ -948,22 +1183,38 @@ def value_phase(csrs, dev, card):
             value_err = max(value_err, compare_value(
                 stepper, vals, ch, f"{gname} {name}"))
     err, sweep = long_degree_sweep(cases, card)
+    r_err, routes = route_phase(bfs_pallas.search_graph(csrs[20], dev), card)
     print(f"  [{card}]", flush=True)
     done(t0)
-    return max(value_err, err), value_rows, sweep
+    return max(value_err, err, r_err), value_rows, sweep, routes
 
 
-def sssp_phase(csr20, csr14, dev, card, counts):
+def replay_path(steppers, call, label, card):
+    """One more call of an entry point (`call()`), outside its count
+    window, with every sweep of `steppers` ({name: stepper}) recorded,
+    then each recorded sweep replayed through every route
+    (`replay_routes`).  Returns {name: replay totals}."""
+    logs = {k: [] for k in steppers}
+    with contextlib.ExitStack() as stack:
+        for k, st in steppers.items():
+            stack.enter_context(recording(st, logs[k]))
+        call()
+    return {k: replay_routes(steppers[k], logs[k], f"{label} {k}", card)
+            for k in steppers if logs[k]}
+
+
+def sssp_phase(csr20, csr14, dev, card, counts, routes, replays):
     """Phase 7: SSSP at rmat-s20, unweighted and weighted, against
     scipy; preds at rmat-s14 against the oracle.  Puts the value
-    kernel's launches of each s20 sssp.run into `counts`.  Returns
-    {graph kind: (graph, planes distances, scipy's)} for phase 20."""
+    kernel's launches of each s20 sssp.run into `counts`, by route into
+    `routes`, and each run's rounds replayed through every route into
+    `replays`.  Returns {graph kind: (graph, planes distances, scipy's)}
+    for phase 20."""
     t0 = phase("7 sssp.run planes, rmat-s20")
     src = sources(csr20)[0]
     m = csr20.num_edges
-    value.launches = 0
-    res = sssp.run(csr20, src, mode="planes", mark_preds=False)
-    counts["sssp"] = value.launches
+    with RouteWindow("sssp", counts, routes):
+        res = sssp.run(csr20, src, mode="planes", mark_preds=False)
     want = scipy_dist(csr20, src)
     planes = {"unweighted": (csr20, res.dist, want)}
     if not np.array_equal(res.dist, want):
@@ -977,16 +1228,18 @@ def sssp_phase(csr20, csr14, dev, card, counts):
     busy = replay_rounds_ms(fn.stepper, vals, ch, res.stats.search_depth,
                             want)
     print(f"  unweighted: exact vs scipy; {res.stats.search_depth} rounds, "
-          f"{ms:.3f} ms, {m / (ms * 1e6):.4f} G edges/s; replay, no host "
-          f"sync: sweeps {busy:.4f} ms, card idle "
+          f"{ms:.3f} ms, {m / (ms * 1e6):.4f} G edges/s; launches by "
+          f"route {routes['sssp']}; replay, no host sync (routes decided "
+          f"on the card): sweeps {busy:.4f} ms, card idle "
           f"{100 * (1 - busy / ms):.2f}% of the call [{card}]", flush=True)
+    replays["sssp"] = replay_path({"min": fn.stepper}, lambda: fn(src),
+                                  "sssp", card)
     weights = np.random.default_rng(SEED).integers(1, 64, m).astype(
         np.float32)
     wcsr = CsrGraph.from_arrays(csr20.row_offsets, csr20.col_indices,
                                 weights)
-    value.launches = 0
-    res = sssp.run(wcsr, src, mode="planes", mark_preds=False)
-    counts["sssp weighted"] = value.launches
+    with RouteWindow("sssp weighted", counts, routes):
+        res = sssp.run(wcsr, src, mode="planes", mark_preds=False)
     want = scipy_dist(wcsr, src)
     planes["weights 1..63"] = (wcsr, res.dist, want)
     if not np.array_equal(res.dist, want):
@@ -994,8 +1247,11 @@ def sssp_phase(csr20, csr14, dev, card, counts):
                              "Dijkstra")
     ms = res.stats.elapsed_ms
     print(f"  weights 1..63: exact vs scipy; {res.stats.search_depth} "
-          f"rounds, {ms:.3f} ms, {m / (ms * 1e6):.4f} G edges/s [{card}]",
-          flush=True)
+          f"rounds, {ms:.3f} ms, {m / (ms * 1e6):.4f} G edges/s; launches "
+          f"by route {routes['sssp weighted']} [{card}]", flush=True)
+    wfn = sssp.get_sssp_planes(wcsr, dev)
+    replays["sssp weighted"] = replay_path(
+        {"min": wfn.stepper}, lambda: wfn(src), "sssp weighted", card)
     src14 = sources(csr14)[0]
     res = sssp.run(csr14, src14, mode="planes", mark_preds=True)
     ref_dist, ref_preds = sssp_reference(csr14, src14)
@@ -1009,30 +1265,31 @@ def sssp_phase(csr20, csr14, dev, card, counts):
     return planes
 
 
-def cc_phase(csr20, card, counts):
-    """Phase 8: CC at rmat-s20 against scipy."""
+def cc_phase(csr20, dev, card, counts, routes, replays):
+    """Phase 8: CC at rmat-s20 against scipy; its rounds replayed
+    through every route."""
     t0 = phase("8 cc.run planes, rmat-s20")
-    value.launches = 0
-    res = cc.run(csr20, mode="planes")
-    counts["cc"] = value.launches
+    with RouteWindow("cc", counts, routes):
+        res = cc.run(csr20, mode="planes")
     if not np.array_equal(res.component_ids, scipy_components(csr20)):
         raise AssertionError("cc component ids differ from scipy's")
     ms = res.stats.elapsed_ms
     print(f"  exact vs scipy; {res.num_components} components, "
           f"{res.stats.search_depth} rounds, {ms:.3f} ms, "
-          f"{csr20.num_edges / (ms * 1e6):.4f} G edges/s [{card}]",
-          flush=True)
+          f"{csr20.num_edges / (ms * 1e6):.4f} G edges/s; launches by "
+          f"route {routes['cc']} [{card}]", flush=True)
+    fn = cc.get_cc_planes(csr20, dev)
+    replays["cc"] = replay_path({"min": fn.stepper}, fn, "cc", card)
     done(t0)
 
 
-def pr_phase(csr20, card, counts):
+def pr_phase(csr20, card, counts, routes):
     """Phase 9: PR at rmat-s20, twice, against the NumPy oracle.
     Returns (the ranks, the oracle's)."""
     t0 = phase(f"9 pr.run planes max_iter={PR_ITERS}, rmat-s20")
-    value.launches = 0
-    res = pr.run(csr20, max_iter=PR_ITERS, mode="planes")
-    again = pr.run(csr20, max_iter=PR_ITERS, mode="planes")
-    counts["pr"] = value.launches
+    with RouteWindow("pr", counts, routes):
+        res = pr.run(csr20, max_iter=PR_ITERS, mode="planes")
+        again = pr.run(csr20, max_iter=PR_ITERS, mode="planes")
     if not np.array_equal(res.ranks.view(np.int32),
                           again.ranks.view(np.int32)):
         raise AssertionError("two pr.run calls give different ranks")
@@ -1048,7 +1305,7 @@ def pr_phase(csr20, card, counts):
               flush=True)
     print(f"  allclose to the oracle (max |diff| "
           f"{float(np.abs(res.ranks - ref).max()):.3g}); two calls "
-          f"bitwise equal", flush=True)
+          f"bitwise equal; launches by route {routes['pr']}", flush=True)
     done(t0)
     return res.ranks, ref
 
@@ -1526,14 +1783,16 @@ def spmv_one_source_ms(sw, contrib):
     return event_ms(lambda: one(contrib), lambda: None, 20)
 
 
-def pr_pallas_phase(csr20, planes_ranks, ref, card, counts):
+def pr_pallas_phase(csr20, planes_ranks, ref, card, counts, routes):
     """Phase 15: pr.run(mode="pallas") at rmat-s20, twice, against the
     NumPy oracle and phase 9's planes ranks; the pull-SpMV's launches of
-    the two calls go into `counts`."""
+    the two calls go into `counts`, the value kernel's by route into
+    `routes`."""
     t0 = phase(f"15 pr.run pallas max_iter={PR_ITERS}, rmat-s20")
     spmv.launches = 0
-    res = pr.run(csr20, max_iter=PR_ITERS, mode="pallas")
-    again = pr.run(csr20, max_iter=PR_ITERS, mode="pallas")
+    with RouteWindow("pr pallas", {}, routes):
+        res = pr.run(csr20, max_iter=PR_ITERS, mode="pallas")
+        again = pr.run(csr20, max_iter=PR_ITERS, mode="pallas")
     counts["pr pallas"] = spmv.launches
     if not np.array_equal(res.ranks.view(np.int32),
                           again.ranks.view(np.int32)):
@@ -1550,7 +1809,8 @@ def pr_pallas_phase(csr20, planes_ranks, ref, card, counts):
               f"{m * it / (ms * 1e6):.4f} G edge-updates/s [{card}]",
               flush=True)
     done(t0, f"allclose to the oracle and the planes ranks; two calls "
-             f"bitwise equal; {spmv.launches} SpMV launches")
+             f"bitwise equal; {spmv.launches} SpMV launches, by route "
+             f"{routes['pr pallas']}")
 
 
 def close(what, got, want, rtol, atol=1e-6):
@@ -1560,7 +1820,7 @@ def close(what, got, want, rtol, atol=1e-6):
                              f"{rtol}, atol {atol} (max |diff| {err:.3g})")
 
 
-def hits_salsa_phase(graphs, card, counts):
+def hits_salsa_phase(graphs, card, counts, routes):
     """Phase 16: HITS and SALSA planes on both s20 graphs against the
     NumPy oracles, each call with the value kernel's launches in its
     own window (into `counts`).  Returns {kind: (hits oracle, salsa
@@ -1570,29 +1830,29 @@ def hits_salsa_phase(graphs, card, counts):
                f"rmat-s20")
     for kind, csr in graphs.items():
         src = sources(csr)[0]
-        value.launches = 0
-        res = hits.run(csr, src=src, max_iter=RANK_ITERS, mode="planes")
-        counts[f"hits {kind}"] = value.launches
+        with RouteWindow(f"hits {kind}", counts, routes):
+            res = hits.run(csr, src=src, max_iter=RANK_ITERS, mode="planes")
         hub, auth = hits_reference(csr, src, max_iter=RANK_ITERS)
         close(f"{kind} hits hub ranks", res.hub_ranks, hub, 1e-4)
         close(f"{kind} hits auth ranks", res.auth_ranks, auth, 1e-4)
         print(f"  {kind} hits from {src}: allclose; "
-              f"{res.stats.elapsed_ms:.3f} ms [{card}]", flush=True)
-        value.launches = 0
-        res = salsa.run(csr, max_iter=RANK_ITERS, mode="planes")
-        counts[f"salsa {kind}"] = value.launches
+              f"{res.stats.elapsed_ms:.3f} ms; launches by route "
+              f"{routes[f'hits {kind}']} [{card}]", flush=True)
+        with RouteWindow(f"salsa {kind}", counts, routes):
+            res = salsa.run(csr, max_iter=RANK_ITERS, mode="planes")
         salsa_ref = salsa_reference(csr, max_iter=RANK_ITERS)
         refs[kind] = ((hub, auth), salsa_ref)
         hub, auth = salsa_ref
         close(f"{kind} salsa hub ranks", res.hub_ranks, hub, 1e-4)
         close(f"{kind} salsa auth ranks", res.auth_ranks, auth, 1e-4)
-        print(f"  {kind} salsa: allclose; {res.stats.elapsed_ms:.3f} ms "
-              f"[{card}]", flush=True)
+        print(f"  {kind} salsa: allclose; {res.stats.elapsed_ms:.3f} ms; "
+              f"launches by route {routes[f'salsa {kind}']} [{card}]",
+              flush=True)
     done(t0)
     return refs
 
 
-def wtf_phase(graphs, card, counts):
+def wtf_phase(graphs, card, counts, routes):
     """Phase 17: WTF planes on both s20 graphs, checked as the JAX
     package's tests check it: PPR allclose, the circle of trust
     score-equivalent per position, the ranks allclose to the oracle
@@ -1602,9 +1862,8 @@ def wtf_phase(graphs, card, counts):
     t0 = phase(f"17 wtf.run planes cot_size={COT_SIZE}, rmat-s20")
     for kind, csr in graphs.items():
         src = sources(csr)[0]
-        value.launches = 0
-        res = wtf.run(csr, src=src, cot_size=COT_SIZE, mode="planes")
-        counts[f"wtf {kind}"] = value.launches
+        with RouteWindow(f"wtf {kind}", counts, routes):
+            res = wtf.run(csr, src=src, cot_size=COT_SIZE, mode="planes")
         pinned, _, ppr = wtf_reference(csr, src, cot_size=COT_SIZE,
                                        cot=res.cot)
         refs[kind] = (res.cot, pinned, ppr)
@@ -1616,24 +1875,24 @@ def wtf_phase(graphs, card, counts):
         phases = ", ".join(f"{k} {v:.3f}" if isinstance(v, float)
                            else f"{k} {v}" for k, v in res.phases.items())
         print(f"  {kind} wtf from {src}: allclose; "
-              f"{res.stats.elapsed_ms:.3f} ms ({phases}) [{card}]",
-              flush=True)
+              f"{res.stats.elapsed_ms:.3f} ms ({phases}); launches by route "
+              f"{routes[f'wtf {kind}']} [{card}]", flush=True)
     done(t0)
     return refs
 
 
-def bc_phase(graphs, card, counts):
+def bc_phase(graphs, dev, card, counts, routes, replays):
     """Phase 18: single-source BC planes on both s20 graphs, twice,
-    against bc_reference_fast.  Returns {kind: the oracle's (values,
-    sigma, labels)} for phase 23."""
+    against bc_reference_fast; the levels of one more call replayed
+    through every route.  Returns {kind: the oracle's (values, sigma,
+    labels)} for phase 23."""
     refs = {}
     t0 = phase("18 bc.run planes, rmat-s20")
     for kind, csr in graphs.items():
         src = sources(csr)[0]
-        value.launches = 0
-        res = bc.run(csr, src=src, mode="planes")
-        again = bc.run(csr, src=src, mode="planes")
-        counts[f"bc {kind}"] = value.launches
+        with RouteWindow(f"bc {kind}", counts, routes):
+            res = bc.run(csr, src=src, mode="planes")
+            again = bc.run(csr, src=src, mode="planes")
         for what, a, b in (("values", res.bc_values, again.bc_values),
                            ("sigmas", res.sigmas, again.sigmas),
                            ("labels", res.labels, again.labels)):
@@ -1657,7 +1916,12 @@ def bc_phase(graphs, card, counts):
               f"sigmas exact below 2^24 ({int((~exact).sum())} above); "
               f"depth {res.stats.search_depth}, "
               f"{res.stats.elapsed_ms:.3f} ms, {again.stats.elapsed_ms:.3f}"
-              f" ms; two calls bitwise equal [{card}]", flush=True)
+              f" ms; two calls bitwise equal; launches by route "
+              f"{routes[f'bc {kind}']} [{card}]", flush=True)
+        fn = bc.get_bc_planes(csr, dev)
+        replays[f"bc {kind}"] = replay_path(
+            {"forward": fn.fwd, "reverse": fn.rev}, lambda: fn(src),
+            f"bc {kind}", card)
     done(t0)
     return refs
 
@@ -2532,35 +2796,97 @@ def bfs_variants(csr, dev, card):
                   flush=True)
 
 
-def variants(dev, card, only_bfs=False):
-    """`--variants DIR [bfs]`: the BFS kernels (`bfs_variants`), then,
-    unless `bfs` is given, the s20 sweeps of phases 6, 12 and 14 as they
-    are and on the variant inputs, on the kernels of the package
-    imported (DIR's)."""
+def digest(tensors):
+    """The first 16 hex digits of the sha256 of the tensors' bytes: the
+    same on two checkouts when their kernels give the same bits."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(torch.int32).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+WALL_CALLS = 11         # `walls`: timed calls of each entry point
+
+
+def walls(card):
+    """`--variants DIR walls`: the timed call's wall ms (each entry
+    point's own Stats.elapsed_ms, after its warm-up) of WALL_CALLS calls
+    of each value-kernel entry point at rmat-s20 (SSSP unweighted and
+    weights 1..63, CC, PR planes and pallas on the undirected graph;
+    HITS, SALSA, WTF and BC planes on both), with their medians."""
+    und, dire = graph(20), graph(20, undirected=False)
+    src = sources(und)[0]
+    w = np.random.default_rng(SEED).integers(1, 64, und.num_edges).astype(
+        np.float32)
+    wcsr = CsrGraph.from_arrays(und.row_offsets, und.col_indices, w)
+    calls = {
+        "sssp": lambda: sssp.run(und, src, mode="planes", mark_preds=False),
+        "sssp weighted": lambda: sssp.run(wcsr, src, mode="planes",
+                                          mark_preds=False),
+        "cc": lambda: cc.run(und, mode="planes"),
+        "pr": lambda: pr.run(und, max_iter=PR_ITERS, mode="planes"),
+        "pr pallas": lambda: pr.run(und, max_iter=PR_ITERS, mode="pallas"),
+    }
+    for kind, csr in (("undirected", und), ("directed", dire)):
+        s = sources(csr)[0]
+        calls.update({
+            f"hits {kind}": lambda csr=csr, s=s: hits.run(
+                csr, src=s, max_iter=RANK_ITERS, mode="planes"),
+            f"salsa {kind}": lambda csr=csr: salsa.run(
+                csr, max_iter=RANK_ITERS, mode="planes"),
+            f"wtf {kind}": lambda csr=csr, s=s: wtf.run(
+                csr, src=s, cot_size=COT_SIZE, mode="planes"),
+            f"bc {kind}": lambda csr=csr, s=s: bc.run(csr, src=s,
+                                                      mode="planes"),
+        })
+    for name, call in calls.items():
+        ms = [call().stats.elapsed_ms for _ in range(WALL_CALLS)]
+        print(f"  wall {name}: median {sorted(ms)[len(ms) // 2]:.4f} ms "
+              f"(" + ", ".join(f"{t:.4f}" for t in ms) + f") [{card}]",
+              flush=True)
+
+
+def variants(dev, card, only=None):
+    """`--variants DIR [bfs|sweeps|walls]`: the BFS kernels
+    (`bfs_variants`) unless `sweeps` or `walls` is given, then, unless
+    `bfs` is given, the s20 sweeps of phases 6, 12 and 14 as they are and
+    on the variant inputs; with `walls` only `walls`; on the kernels of
+    the package imported (DIR's)."""
     import gunrockinst_tpu_torch
     print(f"  kernels of {Path(gunrockinst_tpu_torch.__file__).parent}",
           flush=True)
+    if only == "walls":
+        walls(card)
+        return 0
     csr = graph(20)
-    bfs_variants(csr, dev, card)
-    if only_bfs:
+    if only != "sweeps":
+        bfs_variants(csr, dev, card)
+    if only == "bfs":
         return 0
     g = bfs_pallas.search_graph(csr, dev)
     rng = np.random.default_rng(SEED + 20)
     for name in VALUE_CONFIGS:
-        st, vals, ch = value_case(g, name, rng)
+        st, vals, ch = value_inputs(g.stepper.offsets, g.stepper.in_src,
+                                    g.n, name, rng)
         out = torch.empty_like(vals)
-        ms = event_ms(lambda: st.sweep(vals, ch, out=out), lambda: None, 20)
-        print(f"  value {name}: {ms * 1e3:.1f} us, one source "
-              f"{one_source_ms(st, vals, ch, name) * 1e3:.1f} us [{card}]",
+        kw = dense_kw(st)
+        ms = event_ms(lambda: st.sweep(vals, ch, out=out, **kw),
+                      lambda: None, 20)
+        print(f"  value {name}: dense {ms * 1e3:.1f} us, one source "
+              f"{one_source_ms(st, vals, ch, name) * 1e3:.1f} us; bits "
+              f"{digest(st.sweep(vals, ch, **kw)[:2])} [{card}]",
               flush=True)
+
     sw = pr.get_spmv_sweeper(csr, dev)
     c = np.zeros(sw.n_pad, np.float32)
     c[: sw.n] = np.random.default_rng(SEED).random(sw.n, dtype=np.float32)
     contrib = torch.from_numpy(c).to(dev)
     ms = event_ms(lambda: sw(contrib), lambda: None, 20)
     print(f"  spmv: {ms * 1e3:.1f} us, one source "
-          f"{spmv_one_source_ms(sw, contrib) * 1e3:.1f} us [{card}]",
-          flush=True)
+          f"{spmv_one_source_ms(sw, contrib) * 1e3:.1f} us; bits "
+          f"{digest([sw(contrib)])} [{card}]", flush=True)
+
     sw = bfs_pallas.get_pull_sweeper(csr, dev)
     for d, (fw, vw) in enumerate(touch_levels(sw, sources(csr)[0])):
         k_ms = event_ms(lambda: sw(fw), lambda: None, 20)
@@ -2585,7 +2911,7 @@ def main() -> int:
     dev = resolve_device(None)
     if sys.argv[1:2] == ["--variants"]:
         t0 = phase("sweep variants")
-        variants(dev, card_line(), only_bfs=sys.argv[3:4] == ["bfs"])
+        variants(dev, card_line(), only=(sys.argv[3:4] or [None])[0])
         done(t0)
         faulthandler.cancel_dump_traceback_later()
         return 0
@@ -2689,13 +3015,14 @@ def main() -> int:
           f"median [{card}]", flush=True)
     done(t0)
 
-    value_err, value_rows, sweep = value_phase(csrs, dev, card)
+    value_err, value_rows, sweep, route_rows = value_phase(csrs, dev, card)
 
     # ---- the value-plane paths: one count window per entry point -----
-    by_path = {}
-    sssp_planes = sssp_phase(csr20, csr14, dev, card, by_path)
-    cc_phase(csr20, card, by_path)
-    planes_ranks, pr_ref = pr_phase(csr20, card, by_path)
+    by_path, by_route, replays = {}, {}, {}
+    sssp_planes = sssp_phase(csr20, csr14, dev, card, by_path, by_route,
+                             replays)
+    cc_phase(csr20, dev, card, by_path, by_route, replays)
+    planes_ranks, pr_ref = pr_phase(csr20, card, by_path, by_route)
     # ---- end of the value-plane paths (more in phases 16-18) ---------
 
     chain_err, chain_row, csr1024 = chain_phase(csr14, dev, card)
@@ -2715,16 +3042,24 @@ def main() -> int:
     spmv_err, spmv_row = spmv_phase(graphs, dev, card)
     # ---- the pull-SpMV path: its own count window --------------------
     spmv_counts = {}
-    pr_pallas_phase(csr20, planes_ranks, pr_ref, card, spmv_counts)
+    pr_pallas_phase(csr20, planes_ranks, pr_ref, card, spmv_counts,
+                    by_route)
     launches["spmv"] = sum(spmv_counts.values())
     # ---- end of the pull-SpMV path -----------------------------------
     # ---- the link-analysis paths: one value count window per call ----
-    rank_refs = hits_salsa_phase(graphs, card, by_path)
-    wtf_refs = wtf_phase(graphs, card, by_path)
-    bc_refs = bc_phase(graphs, card, by_path)
+    rank_refs = hits_salsa_phase(graphs, card, by_path, by_route)
+    wtf_refs = wtf_phase(graphs, card, by_path, by_route)
+    bc_refs = bc_phase(graphs, dev, card, by_path, by_route, replays)
     launches["value_step"] = sum(by_path.values())
     # ---- end of the link-analysis paths ------------------------------
     print(f"  value_step launches per path: {by_path}", flush=True)
+    print(f"  value_step launches per path and route: {by_route}",
+          flush=True)
+    for path in ("sssp", "sssp weighted", "cc", "bc undirected",
+                 "bc directed"):
+        if by_route[path]["push"] + by_route[path]["touched"] == 0:
+            raise AssertionError(f"{path}: no sweep took the push or the "
+                                 f"touched route ({by_route[path]})")
     # ---- the default modes: no hand-written kernel may launch --------
     bfs_xla_phase(csr20, src, ref_labels, ref_preds, res, card)
     sssp_xla_phase(sssp_planes, csr14, card)
@@ -2782,7 +3117,12 @@ def main() -> int:
              "one sweep of each configuration",
         configs=[{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms",
                                     "library_ms")} for r in value_rows],
-        launches_by_path=by_path, ms_by_long_degree=sweep))
+        launches_by_path=by_path, launches_by_route=by_route,
+        routes=route_rows,
+        replays={p: {k: {t: v[t] for t in ("taken_ms", "dense_ms",
+                                            "best_ms")}
+                     for k, v in r.items()} for p, r in replays.items()},
+        ms_by_long_degree=sweep))
     line.append(dict(
         name="chain_bfs", **KERNELS["chain_bfs"],
         launches=launches["chain_bfs"], max_abs_err=chain_err,
@@ -2821,7 +3161,8 @@ def main() -> int:
         library_ms=spmv_row["library_ms"], matches_plain=True,
         work="one sweep of a seeded contrib over the unrelabeled CSC of "
              "rmat-s20 undirected",
-        launches_by_path=spmv_counts))
+        launches_by_path=spmv_counts,
+        launches_by_route={"pr pallas": by_route["pr pallas"]}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(card, flush=True)

@@ -229,15 +229,8 @@ class MegaStepper:
             if self._out_edges is not None:
                 self._out = self._out_edges()
             else:
-                dst = self.edge_dst()
-                order = torch.sort(self.in_src.long(), stable=True).indices
-                counts = torch.bincount(self.in_src.long(),
-                                        minlength=self.n)
-                off = torch.zeros(self.n + 1, dtype=torch.int64,
-                                  device=self.device)
-                off[1:] = torch.cumsum(counts, 0)
-                self._out = (off.to(torch.int32),
-                             dst[order].to(torch.int32))
+                from gunrockinst_tpu_torch.ops.value import out_csr_of
+                self._out = out_csr_of(self.offsets, self.in_src)[:2]
         return self._out
 
     def _check(self, fw, vw, planes, d, reach, direction) -> int:

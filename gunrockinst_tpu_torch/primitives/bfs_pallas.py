@@ -217,14 +217,21 @@ def add_stepper(g: SearchGraph, reverse: bool = False,
     reverse CSC (into sources), ungated or gated on the sources' ch
     bits; one stepper per combination, cached on g, so the sweeps of
     PR, HITS, SALSA, WTF and BC share it (counterpart of the
-    reference's `get_add_stepper`, pallas_value.py:991)."""
+    reference's `get_add_stepper`, pallas_value.py:991).  A gated
+    stepper's touched route walks the active sources' out-edges: the
+    reverse CSC's in-lists for a forward sweep, the forward CSC's for a
+    reverse one."""
     key = (bool(reverse), bool(gated))
     hit = g._add_steppers.get(key)
     if hit is None:
-        offsets, in_src = (g.reverse() if reverse else
-                           (g.stepper.offsets, g.stepper.in_src))
+        forward = (g.stepper.offsets, g.stepper.in_src)
+        offsets, in_src = g.reverse() if reverse else forward
+        out_edges = None
+        if gated:
+            out_edges = (lambda: forward) if reverse else g.reverse
         hit = g._add_steppers[key] = ValueStepper(
-            offsets, in_src, mode="add", f32=True, use_active=gated)
+            offsets, in_src, mode="add", f32=True, use_active=gated,
+            out_edges=out_edges)
     return hit
 
 

@@ -77,7 +77,8 @@ class _CcPlanes:
         g = search_graph(self.und, device)
         self.g = g
         self.stepper = ValueStepper(g.stepper.offsets, g.stepper.in_src,
-                                    mode="min", f32=False, use_active=True)
+                                    mode="min", f32=False, use_active=True,
+                                    out_edges=g.reverse)
         self.limit = g.n + 2
 
     def start(self) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -152,9 +152,13 @@ class _SsspPlanes:
         else:
             weights = torch.from_numpy(np.ascontiguousarray(
                 w, dtype=np.float32)).to(device)
+        # the push and touched routes walk the out-edges: the graph's own
+        # out-CSR, unless per-edge weights need the stepper's own
+        # out-edge order
         self.stepper = ValueStepper(
             g.stepper.offsets, g.stepper.in_src, mode="min", f32=True,
-            weights=weights, const_w=const_w, use_active=True)
+            weights=weights, const_w=const_w, use_active=True,
+            out_edges=None if weights is not None else g.reverse)
         self.limit = 4 * g.n + 8
 
     def start(self, src: int) -> Tuple[torch.Tensor, torch.Tensor]:
