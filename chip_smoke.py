@@ -224,6 +224,35 @@ undirected, seed 42, each call inside the same no-kernel window:
                (slice_depth=2) at rmat-s20 gives phase 4's labels, with
                its tracer's summary (avg_duty).
 
+Phases 30-32 run the multi-device tier (gunrockinst_tpu_torch.parallel)
+at rmat-s20 undirected (and directed for HITS, SALSA and WTF), weights
+1..63 for SSSP, grid-1024^2 from vertex 0 for the deep BFS and phase
+27's canonical MST edges; every call is timed (`parallel.mesh.timed`:
+a warm-up with each collective bracketed by syncs, then the timed call
+ended by a device sync) and prints its wall ms, levels or rounds,
+modelled bytes a rank and the warm-up's ms inside collectives:
+
+ 30. words   - the 12 word-exchange entry points (`*_dist_words`) on one
+               rank, nccl, in this process, each call inside a
+               no-kernel window, held to the oracles of earlier phases
+               (BFS and DOBFS to phase 4's, the grid to Manhattan
+               distance, SSSP to scipy's Dijkstra, CC to scipy's
+               components, BC, HITS, SALSA and WTF to phases 16-18's
+               oracles, MIS independent and maximal, TopK to its
+               oracle, MST to scipy's weight; PR, at phase 9's 6
+               iterations, to phase 9's oracle and pr.run planes ranks,
+               rtol 1e-4, atol 1e-6);
+               the two partition builders' host and device memory peaks
+               at rmat-s20 are printed;
+ 31. ranks   - the same calls on 4 ranks sharing the card through gloo
+               (a RankPool; the exchange path printed): integer outputs
+               equal phase 30's bit for bit, float outputs allclose
+               (rtol 1e-4, atol 1e-6); each rank's partition memory
+               peaks and peak RSS printed;
+ 32. replica - the 12 replicated fallbacks (`parallel/dist.py`,
+               `dist_more.py`) on one rank (nccl) and on the 4 ranks,
+               held the same ways.
+
 Launch counts of the BFS kernel are zeroed just before phase 4 and read
 just after phase 5; those of the value kernel are zeroed just before
 and read just after each entry-point call of phases 7-9 (sssp, sssp
@@ -2361,7 +2390,8 @@ def mis_phase(csr20, card):
 def mst_phase(wcsr, card):
     """Phase 27: mst.run on phase 7's weighted graph (weights 1..63):
     total weight allclose to scipy's (rtol 1e-6), a forest of n -
-    components edges spanning the input's components."""
+    components edges spanning the input's components.  Returns the
+    canonical edges (u, v, w) and scipy's weight, for phase 30."""
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import (connected_components,
                                       minimum_spanning_tree)
@@ -2374,6 +2404,7 @@ def mst_phase(wcsr, card):
         out = canonical_edges(csr)
         canon["ms"], canon["m"] = (time.perf_counter() - t1) * 1e3, len(
             out[0])
+        canon["edges"] = out
         return out
     mst.canonical_edges = timed_canonical
     try:
@@ -2411,6 +2442,7 @@ def mst_phase(wcsr, card):
           f"canonical_edges {canon['ms']:.3f} ms for {canon['m']} edges "
           f"[{card}]", flush=True)
     done(t0)
+    return canon["edges"], want
 
 
 def sampling_phase(csr20, card):
@@ -2901,6 +2933,373 @@ def variants(dev, card, only=None):
     return 0
 
 
+# ---- phases 30-32: the multi-device tier (parallel/) -----------------------
+
+PAR_RANKS = 4           # ranks of phases 31-32, sharing the one card (gloo)
+PAR_TOPK = 1000
+PAR_CLOSE = dict(rtol=1e-4, atol=1e-6)
+# the tiers' PR stops after max_iter iterations, pr.run and the oracle
+# after max_iter + 1: the 6 of phase 9.  Deeper, the threshold gate
+# flips on last-bit differences and no two orders of summation agree
+PAR_PR_ITERS = PR_ITERS + 1
+
+
+def par_layouts():
+    """Each output's kind, per entry point: e/E an owned int/float slice
+    (the ranks' slices concatenated), r/R a replicated int/float value,
+    t the modelled bytes (replicated, depends on P)."""
+    return {"bfs": "eert", "bfs grid": "eert", "dobfs": "eerrt",
+            "sssp": "ert", "cc": "ert", "pr": "Et", "bc": "Rrt",
+            "hits": "RRt", "hits directed": "RRt", "salsa": "RRt",
+            "salsa directed": "RRt", "mis": "rrt", "topk": "rrt",
+            "wtf": "RRt", "wtf directed": "RRt", "mst": "rrrt",
+            "bfs_dist": "rrr", "sssp_dist": "rr", "cc_dist": "rr",
+            "pagerank_push_dist": "R", "hits_dist": "RR",
+            "hits_dist directed": "RR", "salsa_dist": "RR",
+            "salsa_dist directed": "RR", "mis_dist": "rr",
+            "topk_dist": "rr", "dobfs_dist": "rrrr", "bc_dist": "RRrr",
+            "mst_dist": "rrr", "wtf_dist": "RR", "wtf_dist directed": "RR"}
+
+
+def par_mis_prio(n, n_pad):
+    prio = np.zeros(n_pad, np.int32)
+    prio[:n] = np.random.default_rng(0).permutation(n)
+    return prio
+
+
+def par_calls(tier, n, p, srcs):
+    """(label, entry point, args, kwargs) of one tier's calls at P ranks,
+    its graphs named by what each rank keeps (`par_keep`)."""
+    from gunrockinst_tpu_torch.parallel import dist, dist_more
+    from gunrockinst_tpu_torch.parallel import dist_words as dw
+    from gunrockinst_tpu_torch.parallel.mesh import MESH, Kept
+    k = Kept
+    src = srcs["undirected"]
+    if tier == "words":
+        n_loc = -(-(n + 1) // (4096 * p)) * 4096
+        calls = [("bfs", dw.bfs_dist_words, (k("g20"), src, MESH)),
+                 ("bfs grid", dw.bfs_dist_words, (k("ggrid"), 0, MESH)),
+                 ("dobfs", dw.dobfs_dist_words, (k("g20"), src, MESH)),
+                 ("sssp", dw.sssp_dist_words, (k("gw20"), src, MESH)),
+                 ("cc", dw.cc_dist_words, (k("g20"), MESH)),
+                 ("pr", dw.pagerank_dist_words, (k("g20"), MESH),
+                  dict(max_iter=PAR_PR_ITERS)),
+                 ("bc", dw.bc_dist_words, (k("csr20"), src, MESH))]
+        for kind in ("", " directed"):
+            g = k("dcsr20" if kind else "csr20")
+            s = srcs["directed" if kind else "undirected"]
+            calls += [(f"hits{kind}", dw.hits_dist_words, (g, MESH, s),
+                       dict(max_iter=RANK_ITERS)),
+                      (f"salsa{kind}", dw.salsa_dist_words, (g, MESH),
+                       dict(max_iter=RANK_ITERS))]
+        calls += [("mis", dw.mis_dist_words,
+                   (k("csr20"), MESH, par_mis_prio(n, n_loc * p))),
+                  ("topk", dw.topk_dist_words, (k("csr20"), MESH, PAR_TOPK))]
+        for kind in ("", " directed"):
+            g = k("dcsr20" if kind else "csr20")
+            s = srcs["directed" if kind else "undirected"]
+            calls.append((f"wtf{kind}", dw.wtf_dist_words, (g, MESH, s),
+                          dict(cot_size=COT_SIZE)))
+        calls.append(("mst", dw.mst_dist_words,
+                      (k("mst_u"), k("mst_v"), k("mst_w"), n, MESH)))
+    else:
+        n_pad = -(-(n + 1) // 128) * 128
+        calls = [("bfs_dist", dist.bfs_dist, (k("s20"), src, MESH)),
+                 ("sssp_dist", dist.sssp_dist, (k("sw20"), src, MESH)),
+                 ("cc_dist", dist.cc_dist, (k("s20"), MESH)),
+                 ("pagerank_push_dist", dist.pagerank_push_dist,
+                  (k("s20"), MESH), dict(max_iter=PAR_PR_ITERS))]
+        for kind in ("", " directed"):
+            g = k("ds20" if kind else "s20")
+            s = srcs["directed" if kind else "undirected"]
+            calls += [(f"hits_dist{kind}", dist_more.hits_dist, (g, MESH, s),
+                       dict(max_iter=RANK_ITERS)),
+                      (f"salsa_dist{kind}", dist_more.salsa_dist, (g, MESH),
+                       dict(max_iter=RANK_ITERS))]
+        calls += [("mis_dist", dist_more.mis_dist,
+                   (k("s20"), MESH, par_mis_prio(n, n_pad))),
+                  ("topk_dist", dist_more.topk_dist,
+                   (k("s20"), MESH, PAR_TOPK)),
+                  ("dobfs_dist", dist_more.dobfs_dist,
+                   (k("s20"), src, MESH)),
+                  ("bc_dist", dist_more.bc_dist, (k("s20"), src, MESH)),
+                  ("mst_dist", dist_more.mst_dist,
+                   (k("mst_u"), k("mst_v"), k("mst_w"), n, MESH))]
+        for kind in ("", " directed"):
+            g = k("ds20" if kind else "s20")
+            s = srcs["directed" if kind else "undirected"]
+            calls.append((f"wtf_dist{kind}", dist_more.wtf_dist,
+                          (g, MESH, s), dict(cot_size=COT_SIZE)))
+    return [c if len(c) == 4 else c + ({},) for c in calls]
+
+
+def par_keep(tier):
+    """(name, value) pairs each rank keeps beside the host graphs: their
+    partitions, built on the rank (call(...) runs there)."""
+    from gunrockinst_tpu_torch.graph.csr import DeviceGraph
+    from gunrockinst_tpu_torch.parallel import dist_words as dw
+    from gunrockinst_tpu_torch.parallel.mesh import MESH, Kept, call
+    from gunrockinst_tpu_torch.parallel.partition import shard_graph
+    pairs = []
+    if tier == "words":
+        for name, g in (("g20", "csr20"), ("gw20", "wcsr20"),
+                        ("ggrid", "grid")):
+            pairs.append((name, call(dw.shard_graph_by_dst, Kept(g), MESH)))
+    else:
+        for name, g in (("s20", "csr20"), ("sw20", "wcsr20"),
+                        ("ds20", "dcsr20")):
+            dg = call(DeviceGraph.build, Kept(g), with_csc=False,
+                      device=call(getattr, MESH, "device"))
+            pairs.append((name, call(shard_graph, dg, MESH)))
+    return pairs
+
+
+def par_peak_jobs(n, p):
+    """The two word-tier partition builders of rmat-s20 at P ranks, as
+    (builder, args...) for `memory_peaks`."""
+    from gunrockinst_tpu_torch.parallel import dist_words as dw
+    from gunrockinst_tpu_torch.parallel.mesh import MESH, Kept
+    n_loc = -(-(n + 1) // (4096 * p)) * 4096
+    return [(dw.shard_graph_by_dst, Kept("csr20"), MESH),
+            (dw._src_owned_edges, Kept("csr20"), n_loc, p, n, MESH)]
+
+
+def print_peaks(p, per_rank):
+    """One line a rank: each builder's host peak (its NumPy buffers),
+    device peak and device bytes kept, and the rank's peak RSS."""
+    for r, peaks in enumerate(per_rank):
+        parts = [f"{what} host peak {k['host_peak']} B, device peak "
+                 f"{k['device_peak']} B, kept {k['device_kept']} B"
+                 for what, k in zip(("dst-owned", "src-owned"), peaks)]
+        rss = ("the smoke's own process" if p == 1
+               else f"{peaks[-1]['rss_peak']} B")
+        print(f"  partition memory, rmat-s20, {p} rank(s), rank {r}: "
+              f"{'; '.join(parts)}; peak RSS {rss}", flush=True)
+
+
+def par_outputs(label, per_rank):
+    """One call's outputs from every rank's: owned slices concatenated
+    in rank order, replicated values checked equal on every rank."""
+    layout = par_layouts()[label]
+    per_rank = [o if isinstance(o, tuple) else (o,) for o in per_rank]
+    outs = []
+    for i, kind in enumerate(layout):
+        vals = [o[i] for o in per_rank]
+        if kind in "eE":
+            outs.append(np.concatenate(vals))
+            continue
+        for r, v in enumerate(vals[1:], 1):
+            if not np.array_equal(np.asarray(v), np.asarray(vals[0])):
+                raise AssertionError(f"{label}: rank {r}'s output {i} "
+                                     "differs from rank 0's")
+        outs.append(vals[0])
+    return outs
+
+
+def check_mis_set(csr, in_set):
+    src, dst = edge_list(csr)
+    if (in_set[src] & in_set[dst]).any():
+        raise AssertionError("mis: the set is not independent")
+    covered = np.bincount(src[in_set[dst]], minlength=csr.num_nodes) > 0
+    if not (in_set | covered).all():
+        raise AssertionError("mis: the set is not maximal")
+
+
+def grid_oracle(side):
+    """BFS labels and min-id preds from vertex 0 of grid_graph(side):
+    Manhattan distance; the parent above, else the one to the left."""
+    ids = np.arange(side * side, dtype=np.int64)
+    r, c = ids // side, ids % side
+    labels = (r + c).astype(np.int32)
+    preds = np.where(r > 0, ids - side, ids - 1).astype(np.int32)
+    preds[0] = -1
+    return labels, preds
+
+
+def par_check(label, out, refs):
+    """Holds one single-rank output to what the JAX package's tests hold
+    its call to: the oracles of earlier phases and scipy."""
+    n = refs["n"]
+    name = label.split()[0]
+    directed = label.endswith("directed")
+    kind = "directed" if directed else "undirected"
+    if name in ("bfs", "dobfs", "bfs_dist", "dobfs_dist"):
+        want = refs["grid"] if label == "bfs grid" else refs["bfs"]
+        m = len(want[0])
+        if not (np.array_equal(out[0][:m], want[0])
+                and np.array_equal(out[1][:m], want[1])):
+            raise AssertionError(f"{label}: labels or preds differ from the "
+                                 "oracle")
+    elif name in ("sssp", "sssp_dist"):
+        if not np.array_equal(out[0][:n], refs["sssp"]):
+            raise AssertionError(f"{label}: distances differ from scipy's")
+    elif name in ("cc", "cc_dist"):
+        if not np.array_equal(out[0][:n], refs["cc"]):
+            raise AssertionError(f"{label}: components differ from scipy's")
+    elif name in ("pr", "pagerank_push_dist"):
+        close(f"{label} ranks", out[0][:n], refs["pr"][0], 1e-4)
+        close(f"{label} ranks (vs pr.run planes)", out[0][:n], refs["pr"][1],
+              1e-4)
+    elif name in ("bc", "bc_dist"):
+        close(f"{label} values", out[0][:n], refs["bc"], 1e-4)
+    elif name in ("hits", "salsa", "hits_dist", "salsa_dist"):
+        hub, auth = refs["rank"][kind][0 if name.startswith("hits") else 1]
+        close(f"{label} hub ranks", out[0][:n], hub, 1e-4)
+        close(f"{label} auth ranks", out[1][:n], auth, 1e-4)
+    elif name in ("mis", "mis_dist"):
+        state = out[0][:n]
+        if (state == 0).any():
+            raise AssertionError(f"{label}: a vertex was never decided")
+        check_mis_set(refs["csr"], state == 1)
+    elif name in ("topk", "topk_dist"):
+        ids, cent = refs["topk"][:2]
+        if not (np.array_equal(out[0], ids) and np.array_equal(out[1], cent)):
+            raise AssertionError(f"{label}: differs from the oracle")
+    elif name in ("wtf", "wtf_dist"):
+        csr = refs["graphs"][kind]
+        src = refs["srcs"][kind]
+        ppr = out[1][:n]
+        cot_pl, pinned, want_ppr = refs["wtf"][kind]
+        close(f"{label} ppr ranks", ppr, want_ppr, 1e-3)
+        cot = np.argsort(-ppr, kind="stable")[:COT_SIZE]
+        if not np.array_equal(cot, cot_pl):
+            pinned = wtf_reference(csr, src, cot_size=COT_SIZE, cot=cot)[0]
+        close(f"{label} ranks", out[0][:n], pinned, 1e-3)
+    elif name in ("mst", "mst_dist"):
+        got = float(refs["mst"][2][out[0]].astype(np.float64).sum())
+        if not np.isclose(got, refs["mst_weight"], rtol=1e-6, atol=0):
+            raise AssertionError(f"{label}: weight {got} differs from "
+                                 f"scipy's {refs['mst_weight']}")
+    else:
+        raise AssertionError(f"no check for {label}")
+
+
+def par_line(label, out, wall, coll, wall_t, card, extra=""):
+    layout = par_layouts()[label]
+    ints = [out[i] for i, k in enumerate(layout) if k == "r"
+            and np.ndim(out[i]) == 0]
+    traffic = [out[i] for i, k in enumerate(layout) if k == "t"]
+    print(f"  {label}: {wall:.3f} ms; levels/rounds {ints}; modelled "
+          f"bytes/rank {traffic[0] if traffic else 'n/a'}"
+          f"{' (past int32)' if traffic and traffic[0] >= 2**31 else ''}; "
+          f"warm-up collectives {coll:.3f} of {wall_t:.3f} ms{extra} "
+          f"[{card}]",
+          flush=True)
+
+
+def par_single(tier, data, refs, card):
+    """Phase 30 (the word tier) or the first half of 32 (the fallbacks):
+    one rank on nccl in this process.  Returns {label: outputs}."""
+    from gunrockinst_tpu_torch.parallel.mesh import bind, edge_mesh, timed
+    from gunrockinst_tpu_torch.parallel.mesh import to_host
+    mesh = edge_mesh(device=resolve_device(None))
+    kept = dict(data)
+    t1 = time.perf_counter()
+    for name, value in par_keep(tier):
+        kept[name] = bind(value, mesh, kept)
+    mesh.sync()
+    print(f"  1 rank ({mesh.path}): partitions built in "
+          f"{(time.perf_counter() - t1) * 1e3:.1f} ms", flush=True)
+    if tier == "words":
+        from gunrockinst_tpu_torch.parallel.mesh import memory_peaks
+        print_peaks(1, [tuple(memory_peaks(mesh, *bind(job, mesh, kept))
+                              for job in par_peak_jobs(refs["n"], 1))])
+    results = {}
+    for label, fn, args, kwargs in par_calls(tier, refs["n"], 1,
+                                             refs["srcs"]):
+        with no_kernel_launch(label):
+            out, wall, coll, wall_t = timed(mesh, fn, *bind(args, mesh, kept),
+                                            **kwargs)
+        out = par_outputs(label, [to_host(out)])
+        par_check(label, out, refs)
+        results[label] = out
+        par_line(label, out, wall, coll, wall_t, card)
+    del kept
+    torch.cuda.empty_cache()
+    return results
+
+
+def par_pool(tier, pool, refs, single, card):
+    """Phase 31 or the second half of 32: the same calls on PAR_RANKS
+    gloo ranks sharing the card, which keep the host graphs already;
+    integer outputs equal phase 30's (or 32's single rank's) bit for
+    bit, float outputs allclose."""
+    from gunrockinst_tpu_torch.parallel.mesh import MESH, timed
+    t1 = time.perf_counter()
+    for name, value in par_keep(tier):
+        pool.keep(name, value)
+    print(f"  {pool.size} ranks: partitions built in "
+          f"{(time.perf_counter() - t1) * 1e3:.1f} ms", flush=True)
+    if tier == "words":
+        from gunrockinst_tpu_torch.parallel.mesh import memory_peaks
+        print_peaks(pool.size, list(zip(*(
+            pool.run(memory_peaks, MESH, *job)
+            for job in par_peak_jobs(refs["n"], pool.size)))))
+    for label, fn, args, kwargs in par_calls(tier, refs["n"], pool.size,
+                                             refs["srcs"]):
+        per_rank = pool.run(timed, MESH, fn, *args, **kwargs)
+        out = par_outputs(label, [r[0] for r in per_rank])
+        want = single[label]
+        same = True
+        for i, kind in enumerate(par_layouts()[label]):
+            if np.ndim(out[i]) == 1 and len(out[i]) != len(want[i]):
+                # vertex vectors padded to P's n_pad: the real vertices
+                out[i], want[i] = out[i][:refs["n"]], want[i][:refs["n"]]
+            if kind in "er":
+                if not np.array_equal(out[i], want[i]):
+                    raise AssertionError(f"{label}: output {i} at "
+                                         f"{pool.size} ranks differs from "
+                                         "one rank's")
+            elif kind in "ER":
+                close(f"{label} output {i} at {pool.size} ranks",
+                      np.asarray(out[i]), np.asarray(want[i]),
+                      PAR_CLOSE["rtol"], PAR_CLOSE["atol"])
+                same = same and np.array_equal(out[i], want[i])
+        walls = [r[1] for r in per_rank]
+        floats = ("" if not set("ER") & set(par_layouts()[label]) else
+                  f"; floats {'bitwise equal' if same else 'allclose'} to "
+                  "1 rank's")
+        par_line(label, out, max(walls), max(r[2] for r in per_rank),
+                 max(r[3] for r in per_rank), card,
+                 f"{floats}; rank walls {min(walls):.3f}-{max(walls):.3f}")
+
+
+def parallel_phases(data, refs, card):
+    """Phases 30-32."""
+    import torch.distributed as tdist
+    from gunrockinst_tpu_torch.parallel.mesh import MESH, RankPool, mesh_check
+    t0 = phase("30 parallel word tier, 1 rank on nccl, rmat-s20 and "
+               "grid-1024^2")
+    words = par_single("words", data, refs, card)
+    done(t0)
+    t0 = phase(f"31 parallel word tier, {PAR_RANKS} ranks on the card "
+               f"through gloo")
+    torch.cuda.empty_cache()
+    try:
+        with RankPool(PAR_RANKS, device="cuda", backend="gloo",
+                      deadline_s=600) as pool:
+            checked = pool.run(mesh_check, MESH)
+            print(f"  {PAR_RANKS} ranks up in {time.perf_counter() - t0:.1f}"
+                  f" s; exchange path: {checked[0][2]} (gloo takes the "
+                  f"card's tensors as they are); ranks {checked[0][0]}",
+                  flush=True)
+            t1 = time.perf_counter()
+            for name, value in data.items():
+                pool.keep(name, value)
+            print(f"  host graphs sent to the ranks in "
+                  f"{time.perf_counter() - t1:.1f} s", flush=True)
+            par_pool("words", pool, refs, words, card)
+            done(t0)
+            t0 = phase(f"32 parallel replicated fallbacks, 1 rank on nccl "
+                       f"and {PAR_RANKS} ranks through gloo")
+            fallbacks = par_single("replicated", data, refs, card)
+            par_pool("replicated", pool, refs, fallbacks, card)
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+    done(t0)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.perf_counter()
@@ -3070,7 +3469,7 @@ def main() -> int:
     topk_phase(csr20, card)
     dobfs_phase(csr20, src, ref_labels, ref_preds, card)
     mis_phase(csr20, card)
-    mst_phase(sssp_planes["weights 1..63"][0], card)
+    canon, mst_weight = mst_phase(sssp_planes["weights 1..63"][0], card)
     sampling_phase(csr20, card)
     # ---- the host surfaces: one count window per CLI subcommand -------
     cli_counts = {}
@@ -3083,6 +3482,24 @@ def main() -> int:
                    launches["mega_step"], **cli_counts["mega_step"]}
     launches["mega_step"] = sum(mega_counts.values())
     # ---- end of the host surfaces -------------------------------------
+    # ---- the multi-device tier: no hand-written kernel may launch -----
+    from gunrockinst_tpu_torch.oracles import topk_degree_reference
+    t1 = time.perf_counter()
+    par_refs = {
+        "n": csr20.num_nodes, "csr": csr20, "graphs": graphs,
+        "srcs": {k: sources(g)[0] for k, g in graphs.items()},
+        "bfs": (ref_labels, ref_preds), "grid": grid_oracle(1024),
+        "sssp": sssp_planes["weights 1..63"][2],
+        "cc": scipy_components(csr20), "bc": bc_refs["undirected"][0],
+        "rank": rank_refs, "wtf": wtf_refs,
+        "topk": topk_degree_reference(csr20, PAR_TOPK),
+        "mst": canon, "mst_weight": mst_weight,
+        "pr": (pr_ref, planes_ranks)}
+    print(f"[30-32 oracles] {time.perf_counter() - t1:.1f} s", flush=True)
+    parallel_phases({"csr20": csr20, "dcsr20": graphs["directed"],
+                     "wcsr20": sssp_planes["weights 1..63"][0],
+                     "grid": csr1024, "mst_u": canon[0], "mst_v": canon[1],
+                     "mst_w": canon[2]}, par_refs, card)
 
     for name, count in {**launches, **by_path, **chain_counts,
                         **touch_counts, **spmv_counts,

@@ -94,14 +94,25 @@ def segment_sum(vals: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return out.reshape(k, -1)
 
 
+class SlotSums:
+    """Float sums of per-item values at fixed slot ids in [0, size),
+    each slot's items added in the order they came, as `scatter_add`
+    adds them; the stable sort by id is made once, so a call is a
+    gather and a `segment_sum` along the values' last dimension (a
+    (K, E) batch gives (K, size))."""
+
+    def __init__(self, ids: torch.Tensor, size: int):
+        self.order = torch.argsort(ids, stable=True)
+        self.lengths = torch.bincount(ids, minlength=size)
+
+    def __call__(self, vals: torch.Tensor) -> torch.Tensor:
+        return segment_sum(vals.index_select(-1, self.order), self.lengths)
+
+
 def _sorted_sum(ids: torch.Tensor, vals: torch.Tensor,
                 size: int) -> torch.Tensor:
-    """(..., size) sums of vals[..., i] at ids[i] (ids in [0, size)),
-    each id's items added in the order they came: a stable sort by id,
-    then `segment_sum`."""
-    order = torch.argsort(ids, stable=True)
-    return segment_sum(vals.index_select(-1, order),
-                       torch.bincount(ids, minlength=size))
+    """(..., size) sums of vals[..., i] at ids[i] (ids in [0, size))."""
+    return SlotSums(ids, size)(vals)
 
 
 def scatter_add(init, ids, vals):
