@@ -253,6 +253,8 @@ modelled bytes a rank and the warm-up's ms inside collectives:
                `dist_more.py`) on one rank (nccl) and on the 4 ranks,
                held the same ways.
 
+Launch counts come from the trace's totals (`utils/trace.py`'s
+`launch.*` counters; the value kernel's summed over its routes).
 Launch counts of the BFS kernel are zeroed just before phase 4 and read
 just after phase 5; those of the value kernel are zeroed just before
 and read just after each entry-point call of phases 7-9 (sssp, sssp
@@ -436,6 +438,39 @@ PR_ITERS = 5
 RANK_ITERS = 10        # phase 16: HITS and SALSA iterations
 COT_SIZE = 1000        # phase 17
 INF32 = np.iinfo(np.int32).max
+
+
+_launch_base: dict = {}
+
+
+def _launch_total(kernel: str) -> int:
+    """The trace's total launches of `kernel` (a key of KERNELS; the
+    value kernel's summed over its routes).  Imported here, not at the
+    top: `--variants DIR` may load a package without `utils/trace.py`,
+    and counts no launch."""
+    from gunrockinst_tpu_torch.utils import trace
+    totals = trace.totals()
+    if kernel == "value_step":
+        return sum(v for k, v in totals.items()
+                   if k.startswith("launch.value_step."))
+    return totals.get(f"launch.{kernel}", 0)
+
+
+def zero_launches(*kernels: str) -> None:
+    """Count the launches of `kernels` from here on; with none named,
+    reset every trace total (`trace.reset_totals`)."""
+    if not kernels:
+        from gunrockinst_tpu_torch.utils import trace
+        trace.reset_totals()
+        _launch_base.clear()
+    for k in kernels:
+        _launch_base[k] = _launch_total(k)
+
+
+def launches_of(kernel: str) -> int:
+    """Launches of `kernel` since `zero_launches` last named it (or
+    reset every total)."""
+    return _launch_total(kernel) - _launch_base.get(kernel, 0)
 
 
 def phase(name):
@@ -1172,19 +1207,20 @@ class RouteWindow:
         self.path, self.launches, self.routes = path, launches, routes
 
     def __enter__(self):
-        value.launches = 0
+        zero_launches("value_step")
         value.reset_route_launches()
         return self
 
     def __exit__(self, *exc):
         if exc[0] is not None:
             return False
-        self.launches[self.path] = value.launches
+        n = launches_of("value_step")
+        self.launches[self.path] = n
         by_route = value.route_launches()
         self.routes[self.path] = by_route
-        if sum(by_route.values()) != value.launches:
-            raise AssertionError(f"{self.path}: {value.launches} sweeps "
-                                 f"launched, the card tallied {by_route}")
+        if sum(by_route.values()) != n:
+            raise AssertionError(f"{self.path}: {n} sweeps launched, the "
+                                 f"card tallied {by_route}")
         return False
 
 
@@ -1491,23 +1527,24 @@ def chain_path(csr, dev, card, counts):
     go into `counts`, then one more search must take exactly one."""
     t0 = phase("11 bfs.run auto, grid-1024^2")
     src = int(np.argmax(csr.degrees))
-    chain.launches = 0
+    zero_launches("chain_bfs")
     res = bfs.run(csr, src, traversal_mode="auto")
-    counts["bfs.run auto, grid-1024^2"] = chain.launches
+    counts["bfs.run auto, grid-1024^2"] = launches_of("chain_bfs")
     print(f"  route {res.stats.route}, depth {res.stats.search_depth}, "
           f"{res.stats.nodes_visited} vertices, {res.stats.elapsed_ms:.3f}"
-          f" ms (timed call); chain launches {chain.launches} (warm-up and"
-          f" timed call) [{card}]", flush=True)
+          f" ms (timed call); chain launches {launches_of('chain_bfs')} "
+          f"(warm-up and timed call) [{card}]", flush=True)
     if res.stats.route != "chain":
         raise AssertionError(f"route {res.stats.route!r}, expected "
                              "'chain'")
     fn = bfs_pallas.get_fused_bfs(csr, device=dev)
     if not fn.went_deep:
         raise AssertionError("the deep search did not set went_deep")
-    chain.launches = 0
+    zero_launches("chain_bfs")
     fn(src)
-    if chain.launches != 1:
-        raise AssertionError(f"{chain.launches} chain launches for one "
+    if launches_of("chain_bfs") != 1:
+        raise AssertionError(f"{launches_of('chain_bfs')} chain launches "
+                             "for one "
                              "search once went_deep is set, expected 1")
     t1 = time.perf_counter()
     ref_labels, ref_preds = bfs_reference(csr, src)
@@ -1686,9 +1723,9 @@ def sweep_paths(csr20, src, ref_labels, ref_preds, card, counts):
     oracle, each with the touched sweep's launches in its own window
     (into `counts`)."""
     t0 = phase("13 grid-stepped entry points, rmat-s20")
-    pull.launches = 0
+    zero_launches("touch_sweep")
     res = bfs.run(csr20, src, traversal_mode="pallas")
-    counts["bfs.run pallas"] = pull.launches
+    counts["bfs.run pallas"] = launches_of("touch_sweep")
     if res.stats.route != "sweep":
         raise AssertionError(f"route {res.stats.route!r}, expected 'sweep'")
     if not (np.array_equal(res.labels, ref_labels)
@@ -1699,10 +1736,10 @@ def sweep_paths(csr20, src, ref_labels, ref_preds, card, counts):
           f"{res.stats.elapsed_ms:.3f} ms (timed call) [{card}]",
           flush=True)
     for cap in (None, 2):
-        pull.launches = 0
+        zero_launches("touch_sweep")
         labels, preds, depth = bfs_pallas.bfs_pallas(csr20, src,
                                                      max_depth=cap)
-        counts[f"bfs_pallas max_depth={cap}"] = pull.launches
+        counts[f"bfs_pallas max_depth={cap}"] = launches_of("touch_sweep")
         want = ref_labels if cap is None else np.where(
             ref_labels <= cap, ref_labels, INF32)
         want_preds = np.where(want != INF32, ref_preds, -1)
@@ -1714,9 +1751,9 @@ def sweep_paths(csr20, src, ref_labels, ref_preds, card, counts):
               flush=True)
     sw = bfs_pallas.get_pull_sweeper_v2(csr20)
     fw = start_words(src, sw.rows, sw.device)
-    pull.launches = 0
+    zero_launches("touch_sweep")
     got = sw(fw)
-    counts["get_pull_sweeper_v2"] = pull.launches
+    counts["get_pull_sweeper_v2"] = launches_of("touch_sweep")
     want = words_from_mask(ref_labels == 1, sw.n_words)
     if not np.array_equal(got.cpu().numpy(), want):
         raise AssertionError("the v2 sweeper's touched set from the source "
@@ -1818,11 +1855,11 @@ def pr_pallas_phase(csr20, planes_ranks, ref, card, counts, routes):
     the two calls go into `counts`, the value kernel's by route into
     `routes`."""
     t0 = phase(f"15 pr.run pallas max_iter={PR_ITERS}, rmat-s20")
-    spmv.launches = 0
+    zero_launches("spmv")
     with RouteWindow("pr pallas", {}, routes):
         res = pr.run(csr20, max_iter=PR_ITERS, mode="pallas")
         again = pr.run(csr20, max_iter=PR_ITERS, mode="pallas")
-    counts["pr pallas"] = spmv.launches
+    counts["pr pallas"] = launches_of("spmv")
     if not np.array_equal(res.ranks.view(np.int32),
                           again.ranks.view(np.int32)):
         raise AssertionError("two pr.run pallas calls give different ranks")
@@ -1838,7 +1875,8 @@ def pr_pallas_phase(csr20, planes_ranks, ref, card, counts, routes):
               f"{m * it / (ms * 1e6):.4f} G edge-updates/s [{card}]",
               flush=True)
     done(t0, f"allclose to the oracle and the planes ranks; two calls "
-             f"bitwise equal; {spmv.launches} SpMV launches, by route "
+             f"bitwise equal; {counts['pr pallas']} SpMV launches, by "
+             "route "
              f"{routes['pr pallas']}")
 
 
@@ -1957,19 +1995,13 @@ def bc_phase(graphs, dev, card, counts, routes, replays):
 
 # ---- phases 19-23: the operator layer (the default modes) -----------------
 
-KERNEL_MODULES = {"mega_step": mega, "value_step": value,
-                  "chain_bfs": chain, "touch_sweep": pull, "spmv": spmv}
-
-
 @contextlib.contextmanager
 def no_kernel_launch(what):
     """A window in which the hand-written kernels must not launch: the
     default modes run the operator layer alone."""
-    for mod in KERNEL_MODULES.values():
-        mod.launches = 0
+    zero_launches(*KERNELS)
     yield
-    launched = {k: mod.launches for k, mod in KERNEL_MODULES.items()
-                if mod.launches}
+    launched = {k: launches_of(k) for k in KERNELS if launches_of(k)}
     if launched:
         raise AssertionError(f"{what}: hand-written kernels launched "
                              f"{launched}")
@@ -2514,13 +2546,11 @@ def run_cli(argv):
     launch count zeroed just before it."""
     import io
     from gunrockinst_tpu_torch import cli
-    for mod in KERNEL_MODULES.values():
-        mod.launches = 0
+    zero_launches(*KERNELS)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = cli.main(list(argv))
-    return rc, out.getvalue(), {k: mod.launches for k, mod in
-                                KERNEL_MODULES.items()}
+    return rc, out.getvalue(), {k: launches_of(k) for k in KERNELS}
 
 
 def host_phase(csr20, src, ref_labels, card, counts):
@@ -3355,7 +3385,7 @@ def main() -> int:
     done(t0)
 
     # ---- the main path: counts from here on --------------------------
-    mega.launches = 0
+    zero_launches()
     t0 = phase("4 bfs.run auto, rmat-s20")
     src = sources(csr20)[0]
     res = bfs.run(csr20, src, traversal_mode="auto")
@@ -3377,12 +3407,12 @@ def main() -> int:
     srcs = np.argsort(-csr20.degrees, kind="stable")[:MULTI_K].astype(
         np.int32)
     fn(srcs)                                   # warm-up
-    walls, timed_from = [], mega.launches
+    walls, timed_from = [], launches_of("mega_step")
     for _ in range(3):
         deps, vws, wall = fn(srcs)
         walls.append(wall)
-    launches = {"mega_step": mega.launches}
-    per_search = (mega.launches - timed_from) / (3 * MULTI_K)
+    launches = {"mega_step": launches_of("mega_step")}
+    per_search = (launches["mega_step"] - timed_from) / (3 * MULTI_K)
     # ---- end of the main path ----------------------------------------
     ref_vis = ref_labels != INF32
     symmetric = is_symmetric(bfs_pallas.search_graph(csr20, dev).csr_p)

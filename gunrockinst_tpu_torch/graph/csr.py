@@ -36,6 +36,7 @@ import torch
 
 from gunrockinst_tpu_torch.device import DeviceLike, resolve_device
 from gunrockinst_tpu_torch.graph.coo import CooGraph
+from gunrockinst_tpu_torch.utils import trace
 
 LANE = 128
 
@@ -120,7 +121,9 @@ class CsrGraph:
 
     def transposed(self) -> "CsrGraph":
         """CSC of this graph, i.e. CSR of the reverse graph."""
-        return CsrGraph.from_coo(self.to_coo().reversed(), dedupe=False)
+        with trace.span("gt.setup.transpose"):
+            return CsrGraph.from_coo(self.to_coo().reversed(),
+                                     dedupe=False)
 
     # -- stats -------------------------------------------------------------
 

@@ -52,6 +52,7 @@ import numpy as np
 
 from gunrockinst_tpu_torch.graph.coo import CooGraph
 from gunrockinst_tpu_torch.graph.csr import CsrGraph
+from gunrockinst_tpu_torch.utils import trace
 
 
 def degree_perm(csr: CsrGraph) -> np.ndarray:
@@ -138,16 +139,17 @@ def relabeled(csr: CsrGraph) -> Tuple[CsrGraph, Optional[np.ndarray]]:
     hit = _relabel_cache.get(csr)
     if hit is not None:
         return hit
-    if worth_relabeling(csr):
-        perm = degree_perm(csr)
-        out = (apply_perm(csr, perm), perm)
-    else:
-        perm = None
-        if csr.num_nodes >= 2 * 65536 and os.environ.get(
-                "GT_BFS_RELABEL", "1") != "0":
-            perm = bfs_order_perm(csr)
-        out = ((apply_perm(csr, perm), perm) if perm is not None
-               else (csr, None))
+    with trace.span("gt.setup.relabel"):
+        if worth_relabeling(csr):
+            perm = degree_perm(csr)
+            out = (apply_perm(csr, perm), perm)
+        else:
+            perm = None
+            if csr.num_nodes >= 2 * 65536 and os.environ.get(
+                    "GT_BFS_RELABEL", "1") != "0":
+                perm = bfs_order_perm(csr)
+            out = ((apply_perm(csr, perm), perm) if perm is not None
+                   else (csr, None))
     _relabel_cache[csr] = out
     return out
 
@@ -163,11 +165,12 @@ def component_labels(csr: CsrGraph) -> np.ndarray:
         return hit
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import connected_components
-    n, m = csr.num_nodes, csr.num_edges
-    a = csr_matrix((np.ones(m, np.int8), csr.col_indices,
-                    csr.row_offsets), shape=(n, n))
-    _, comp = connected_components(a, directed=False)
-    comp = comp.astype(np.int32)
+    with trace.span("gt.setup.components"):
+        n, m = csr.num_nodes, csr.num_edges
+        a = csr_matrix((np.ones(m, np.int8), csr.col_indices,
+                        csr.row_offsets), shape=(n, n))
+        _, comp = connected_components(a, directed=False)
+        comp = comp.astype(np.int32)
     _comp_cache[csr] = comp
     return comp
 
@@ -182,10 +185,11 @@ def is_symmetric(csr: CsrGraph) -> bool:
     hit = _sym_cache.get(csr)
     if hit is not None:
         return hit
-    csc = csr.transposed()
-    out = (csc.row_offsets.shape == csr.row_offsets.shape
-           and bool(np.array_equal(csc.row_offsets, csr.row_offsets))
-           and bool(np.array_equal(csc.col_indices, csr.col_indices)))
+    with trace.span("gt.setup.symmetry"):
+        csc = csr.transposed()
+        out = (csc.row_offsets.shape == csr.row_offsets.shape
+               and bool(np.array_equal(csc.row_offsets, csr.row_offsets))
+               and bool(np.array_equal(csc.col_indices, csr.col_indices)))
     _sym_cache[csr] = out
     return out
 

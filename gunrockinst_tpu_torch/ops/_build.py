@@ -24,6 +24,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, List
 
+from gunrockinst_tpu_torch.utils import trace
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -96,6 +98,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT,
                                         text=True), tmp, out)
+        trace.count("kernel.build")
     failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
@@ -116,7 +119,8 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
+            with trace.span("gt.setup.kernel_load"):
+                build([name])
+                lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib

@@ -47,9 +47,7 @@ import torch
 from gunrockinst_tpu_torch.ops import _build
 from gunrockinst_tpu_torch.ops.mega import step_reference
 from gunrockinst_tpu_torch.ops.words import start_words
-
-# Launches of the CUDA kernel; the plain version does not count.
-launches = 0
+from gunrockinst_tpu_torch.utils import trace
 
 GLOBAL_CLUSTER = 8   # blocks when the map is in global memory (chain_bfs.cu's
                      # kGlobalCluster); one block holds a shared-memory map
@@ -184,7 +182,6 @@ class ChainBfs:
 
     def __call__(self, psrc: int
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        global launches
         psrc = int(psrc)
         if not 0 <= psrc < self.n:
             raise ValueError(f"source vertex {psrc} out of range "
@@ -217,5 +214,5 @@ class ChainBfs:
                 f"failed (CUDA error {err}; a cluster of {self.cluster} "
                 f"blocks, {4 * self.n_words * shared_map + 8 * self.q} "
                 f"bytes of shared memory each)")
-        launches += 1
+        trace.count("launch.chain_bfs")
         return planes, vw, depth

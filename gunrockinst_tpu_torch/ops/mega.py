@@ -64,9 +64,7 @@ import torch
 from gunrockinst_tpu_torch.ops import _build
 from gunrockinst_tpu_torch.ops.words import (pack_bitmap, start_words,
                                              unpack_bitmap, word_rows)
-
-# Launches of the CUDA kernel; the plain versions do not count.
-launches = 0
+from gunrockinst_tpu_torch.utils import trace
 
 DIRECTIONS = ("auto", "push", "pull")
 _CODE = {"auto": 0, "push": 1, "pull": 2}
@@ -195,10 +193,11 @@ class MegaStepper:
         self.n = n
         self.rows = word_rows(n)
         self.n_words = self.rows * 128
-        self.offsets = torch.from_numpy(
-            np.ascontiguousarray(col_offsets, dtype=np.int32)).to(device)
-        self.in_src = torch.from_numpy(
-            np.ascontiguousarray(in_src, dtype=np.int32)).to(device)
+        with trace.span("gt.setup.upload"):
+            self.offsets = torch.from_numpy(trace.h2d(np.ascontiguousarray(
+                col_offsets, dtype=np.int32))).to(device)
+            self.in_src = torch.from_numpy(trace.h2d(np.ascontiguousarray(
+                in_src, dtype=np.int32))).to(device)
         self.device = self.offsets.device    # with its index on CUDA
         self._dst = None
         self._out_edges = out_edges
@@ -317,7 +316,6 @@ class MegaStepper:
                             n_planes)
 
     def _launch(self, fw, vw, planes, d, reach, direction, n_planes):
-        global launches
         if self._slots is None:
             ints = _build.load("mega_step").gt_mega_slot_ints
             ints.argtypes, ints.restype = [], ctypes.c_int
@@ -366,7 +364,7 @@ class MegaStepper:
             self._slots.zero_()
             raise RuntimeError(f"mega_step kernel launch failed: CUDA "
                                f"error {err}")
-        launches += 1
+        trace.count("launch.mega_step")
         self._slot, self._stream = out_slot, stream
         self._last_nfw, self._next = nfw, nxt
         return nfw, n_new

@@ -37,9 +37,7 @@ import torch
 from gunrockinst_tpu_torch.ops import _build
 from gunrockinst_tpu_torch.ops.words import (pack_bitmap, unpack_bitmap,
                                              word_rows)
-
-# Launches of the CUDA kernel; the plain version does not count.
-launches = 0
+from gunrockinst_tpu_torch.utils import trace
 
 HEAD = 128   # a list's first ids, read by the sweep; the tail walk reads on
 TAIL_CHUNK = 512    # ids of a list's tail that one warp of the walk takes
@@ -174,7 +172,6 @@ class PullSweeper:
 
     def _sweep(self, fw: torch.Tensor,
                vw: Optional[torch.Tensor]) -> torch.Tensor:
-        global launches
         if fw.device.type == "cpu":
             return touch_reference(self.offsets, self.in_src, fw, vw,
                                    self.edge_dst())
@@ -210,7 +207,7 @@ class PullSweeper:
             raise RuntimeError(f"touch_sweep kernel launch failed: CUDA "
                                f"error {err}")
         self._parity ^= 1
-        launches += 1
+        trace.count("launch.touch_sweep")
         return out
 
     def __call__(self, fw: torch.Tensor) -> torch.Tensor:

@@ -23,7 +23,8 @@ from planning rmat-s20).  The sweep reads the CSC directly at any size.
 The wrapper launches the kernel for CUDA tensors and takes the plain
 version, `sweep_reference`, only for CPU tensors; on the card a build
 or launch failure raises.  One launch of this wrapper is one launch of
-the value kernel, counted here in `launches` and in `ops/value.py`'s.
+the value kernel, counted as `launch.spmv` here and as
+`launch.value_step.dense` in `ops/value.py` (`utils/trace.py`).
 """
 
 from __future__ import annotations
@@ -33,10 +34,7 @@ from typing import Optional
 import torch
 
 from gunrockinst_tpu_torch.ops import value
-
-# Launches of the CUDA kernel through this wrapper; the plain version
-# does not count.
-launches = 0
+from gunrockinst_tpu_torch.utils import trace
 
 
 def sweep_reference(offsets: torch.Tensor, in_src: torch.Tensor,
@@ -75,12 +73,11 @@ class SpmvSweeper:
                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """sums (n_pad,) f32; `out`, when given, receives them and must
         not alias `contrib`."""
-        global launches
         if contrib.dtype != torch.float32:
             raise ValueError("contrib must be an f32 tensor")
         sums, _, _ = self.stepper.sweep(
             contrib.view(torch.int32), None,
             None if out is None else out.view(torch.int32))
         if contrib.device.type == "cuda":
-            launches += 1
+            trace.count("launch.spmv")
         return sums.view(torch.float32)

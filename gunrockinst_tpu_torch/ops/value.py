@@ -76,9 +76,10 @@ contributions are, and always when every ch bit is set.
 The wrapper launches the kernels for CUDA tensors and takes the plain
 version of the route chosen only for CPU tensors.  It never updates in
 place: the result goes to a new or a caller-given buffer distinct from
-`vals`, so every candidate reads the round-start snapshot.  `launches`
-counts the sweeps launched; the card also tallies them per route and
-device (`route_launches`).
+`vals`, so every candidate reads the round-start snapshot.  Each sweep
+launched counts as `launch.value_step.<route>` (`utils/trace.py`;
+`auto` where the card picks the route); the card also tallies them per
+route and device (`route_launches`).
 """
 
 from __future__ import annotations
@@ -93,9 +94,7 @@ from gunrockinst_tpu_torch.ops import _build
 from gunrockinst_tpu_torch.ops.mega import _raw_stream
 from gunrockinst_tpu_torch.ops.words import (pack_bitmap, unpack_bitmap,
                                              word_rows)
-
-# Sweeps launched on the card; the plain versions do not count.
-launches = 0
+from gunrockinst_tpu_torch.utils import trace
 
 MODES = ("min", "add")
 ROUTES = ("dense", "push", "touched")
@@ -563,6 +562,7 @@ class ValueStepper:
         with one host read; on the card by the stats kernel."""
         out_off = self.out_csr()[0]
         if ch.device.type == "cpu":
+            trace.count("host_read")
             return active_stats(out_off, ch)
         result = torch.empty(2, dtype=torch.int32, device=ch.device)
         err = _lib().gt_value_stats(
@@ -571,7 +571,8 @@ class ValueStepper:
         if err != 0:
             raise RuntimeError(f"value_step stats launch failed: CUDA "
                                f"error {err}")
-        count, edges = result.tolist()
+        trace.count("launch.value_stats")
+        count, edges = trace.d2h(result).tolist()
         return count, edges
 
     def last_route(self) -> str:
@@ -684,7 +685,6 @@ class ValueStepper:
     def _launch(self, vals, ch, out, route, chout=None, counts=None):
         """One sweep on the card into out, chout and counts (new tensors
         where not given); `route` None: decided on the card."""
-        global launches
         if self._state is None:
             self._setup()
         scratch, _, ptrs, args, fn, const_w = self._state
@@ -722,7 +722,7 @@ class ValueStepper:
                                f"error {err}")
         if code != _CODES["dense"]:
             self._set ^= 1
-        launches += 1
+        trace.count(f"launch.value_step.{route or 'auto'}")
         self._last = (chout, counts, stream)
         return out, chout, counts
 
@@ -756,11 +756,12 @@ class ValueStepper:
                 return self._launch(vals, ch, out, route, *bufs[it % 2])
         it = 0
         while it < limit:
-            out, ch, counts = sweep(vals, ch, spare,
-                                    route or self.choose_route(edges))
-            vals, spare = out, vals
-            it += 1
-            n_changed, edges = counts.tolist()
+            with trace.span("gt.driver.round"):
+                out, ch, counts = sweep(vals, ch, spare,
+                                        route or self.choose_route(edges))
+                vals, spare = out, vals
+                it += 1
+                n_changed, edges = trace.d2h(counts).tolist()
             if n_changed == 0:
                 break
         return vals, it

@@ -37,8 +37,8 @@ from gunrockinst_tpu_torch.ops.advance import advance_sparse, degree_sum
 from gunrockinst_tpu_torch.ops.segment import scatter_min, scatter_or
 from gunrockinst_tpu_torch.primitives import bfs_pallas
 from gunrockinst_tpu_torch.primitives.base import (INF32, GraphLike, Stats,
-                                                   Timer, device_graph,
-                                                   sync)
+                                                   device_graph, sync)
+from gunrockinst_tpu_torch.utils import trace
 
 INT_MAX = INF32
 
@@ -169,7 +169,16 @@ def run(graph: GraphLike, src: int, mark_preds: bool = True,
 
     `device=None` runs on the CUDA card and raises without one;
     `device="cpu"` runs there (the kernels' plain versions for "mega"
-    and "pallas")."""
+    and "pallas").  The call is traced under `gt.bfs.run`
+    (`utils/trace.py`)."""
+    with trace.call("gt.bfs.run", "bfs", src) as root:
+        res = _run(graph, src, mark_preds, traversal_mode, max_depth,
+                   device)
+        root.set_route(res.stats.route)
+        return res
+
+
+def _run(graph, src, mark_preds, traversal_mode, max_depth, device):
     dev = resolve_device(device)
     if (traversal_mode == "auto" and max_depth is None
             and isinstance(graph, CsrGraph)):
@@ -183,59 +192,71 @@ def run(graph: GraphLike, src: int, mark_preds: bool = True,
     if fn is None:
         raise ValueError(f"unknown traversal_mode {traversal_mode!r}")
     g = device_graph(graph, dev)
-    if not 0 <= int(src) < g.n:
-        raise ValueError(f"source vertex {src} out of range [0, {g.n})")
+    with trace.span("gt.entry.check"):
+        if not 0 <= int(src) < g.n:
+            raise ValueError(f"source vertex {src} out of range [0, {g.n})")
     # warm-up, then the timed run (the reference times the warm run)
-    fn(g, src, mark_preds=mark_preds, max_depth=max_depth)
-    sync(dev)
-    with Timer() as t:
+    with trace.span("gt.entry.warmup"):
+        fn(g, src, mark_preds=mark_preds, max_depth=max_depth)
+        sync(dev)
+    with trace.span("gt.entry.search") as t:
         labels, preds, _, queued = fn(g, src, mark_preds=mark_preds,
                                       max_depth=max_depth)
         sync(dev)
-    labels_np = labels[: g.n].cpu().numpy()
-    visited = labels_np != INF32
-    deg = g.out_degree[: g.n].cpu().numpy()
-    stats = Stats(
-        elapsed_ms=t.elapsed_ms,
-        search_depth=int(labels_np[visited].max()) if visited.any() else 0,
-        nodes_visited=int(visited.sum()),
-        edges_visited=int(deg[visited].sum()),
-        total_queued=queued,
-        route=traversal_mode,
-    )
-    return BfsResult(
-        labels=labels_np,
-        preds=preds[: g.n].cpu().numpy() if mark_preds else None,
-        stats=stats)
+    with trace.span("gt.entry.extract"):
+        labels_np = trace.d2h(labels[: g.n]).cpu().numpy()
+    preds_np = None
+    if mark_preds:
+        with trace.span("gt.entry.preds"):
+            preds_np = trace.d2h(preds[: g.n]).cpu().numpy()
+    with trace.span("gt.entry.stats"):
+        visited = labels_np != INF32
+        deg = trace.d2h(g.out_degree[: g.n]).cpu().numpy()
+        stats = Stats(
+            elapsed_ms=t.elapsed_ms,
+            search_depth=(int(labels_np[visited].max()) if visited.any()
+                          else 0),
+            nodes_visited=int(visited.sum()),
+            edges_visited=int(deg[visited].sum()),
+            total_queued=queued,
+            route=traversal_mode,
+        )
+    return BfsResult(labels=labels_np, preds=preds_np, stats=stats)
 
 
 def _run_kernels(graph, src, mark_preds, traversal_mode, dev):
     """The kernel routes: "mega" (step kernel, chain kernel for deep
     searches) and "pallas" (grid-stepped touched sweeps)."""
-    if not isinstance(graph, CsrGraph):
-        raise TypeError(f"traversal_mode={traversal_mode!r} needs a host "
-                        "CsrGraph")
+    with trace.span("gt.entry.check"):
+        if not isinstance(graph, CsrGraph):
+            raise TypeError(f"traversal_mode={traversal_mode!r} needs a "
+                            "host CsrGraph")
+        if not 0 <= int(src) < graph.num_nodes:
+            raise ValueError(f"source vertex {src} out of range "
+                             f"[0, {graph.num_nodes})")
     variant = "mega" if traversal_mode == "mega" else "fused"
     # warm-up: the first call builds and loads the kernels
-    bfs_pallas.bfs_pallas_fused(graph, src, mark_preds=False,
-                                variant=variant, device=dev)
+    with trace.span("gt.entry.warmup"):
+        bfs_pallas.bfs_pallas_fused(graph, src, mark_preds=False,
+                                    variant=variant, device=dev)
     # timed: device traversal only (reference times Enact(); Extract
     # runs outside the GpuTimer, tests/bfs/test_bfs.cu:402-431)
     labels_np, preds_np, _, device_ms = bfs_pallas.bfs_pallas_fused(
         graph, src, mark_preds=mark_preds, variant=variant, device=dev)
-    visited = labels_np != INF32
-    deg = np.diff(graph.row_offsets)
-    edges = int(deg[visited].sum())
-    stats = Stats(
-        elapsed_ms=device_ms,
-        search_depth=(int(labels_np[visited].max())
-                      if visited.any() else 0),
-        nodes_visited=int(visited.sum()),
-        edges_visited=edges,
-        # every visited vertex's out-edges are scanned once and dedup
-        # is exact (bit OR): enqueues equal useful edge visits
-        total_queued=edges,
-        route=bfs_pallas.get_fused_bfs(graph, variant == "mega",
-                                       dev).route,
-    )
+    with trace.span("gt.entry.stats"):
+        visited = labels_np != INF32
+        deg = np.diff(graph.row_offsets)
+        edges = int(deg[visited].sum())
+        stats = Stats(
+            elapsed_ms=device_ms,
+            search_depth=(int(labels_np[visited].max())
+                          if visited.any() else 0),
+            nodes_visited=int(visited.sum()),
+            edges_visited=edges,
+            # every visited vertex's out-edges are scanned once and
+            # dedup is exact (bit OR): enqueues equal useful edge visits
+            total_queued=edges,
+            route=bfs_pallas.get_fused_bfs(graph, variant == "mega",
+                                           dev).route,
+        )
     return BfsResult(labels=labels_np, preds=preds_np, stats=stats)

@@ -50,6 +50,7 @@ from gunrockinst_tpu_torch.ops.value import ValueStepper
 from gunrockinst_tpu_torch.ops.words import (host_unpack_words, start_words,
                                              unpack_bitmap)
 from gunrockinst_tpu_torch.primitives.base import INF32, Timer, sync
+from gunrockinst_tpu_torch.utils import trace
 
 REACH_CACHE = 64    # per-source reach masks kept on the device
 
@@ -84,8 +85,11 @@ class SearchGraph:
         self._reach = {}
         self._reverse = None
         self._add_steppers = {}
-        self._perm = (None if self.perm is None else torch.from_numpy(
-            self.perm.astype(np.int64)).to(device))
+        self._perm = None
+        if self.perm is not None:
+            with trace.span("gt.setup.upload"):
+                self._perm = torch.from_numpy(trace.h2d(
+                    self.perm.astype(np.int64))).to(device)
 
     def to_internal(self, x: torch.Tensor, fill=0) -> torch.Tensor:
         """(n,) values in input ids -> (32 * n_words,) values in search
@@ -128,11 +132,12 @@ class SearchGraph:
             if is_symmetric(self.csr_p):
                 self._reverse = (st.offsets, st.in_src)
             else:
-                self._reverse = tuple(
-                    torch.from_numpy(np.ascontiguousarray(
-                        a, dtype=np.int32)).to(self.device)
-                    for a in (self.csr_p.row_offsets,
-                              self.csr_p.col_indices))
+                with trace.span("gt.setup.upload"):
+                    self._reverse = tuple(
+                        torch.from_numpy(trace.h2d(np.ascontiguousarray(
+                            a, dtype=np.int32))).to(self.device)
+                        for a in (self.csr_p.row_offsets,
+                                  self.csr_p.col_indices))
         return self._reverse
 
     def reach(self, psrc: int) -> torch.Tensor:
@@ -143,12 +148,13 @@ class SearchGraph:
         first level: the reach vertices other than psrc)."""
         hit = self._reach.get(psrc)
         if hit is None:
-            if len(self._reach) >= REACH_CACHE:
-                self._reach.clear()
-            words = reach_words_for(self.csr_p, psrc, self.n_words)
-            hit = (torch.from_numpy(words).to(self.device),
-                   first_candidates(words, psrc))
-            self._reach[psrc] = hit
+            with trace.span("gt.entry.reach"):
+                if len(self._reach) >= REACH_CACHE:
+                    self._reach.clear()
+                words = reach_words_for(self.csr_p, psrc, self.n_words)
+                hit = (torch.from_numpy(trace.h2d(words)).to(self.device),
+                       first_candidates(words, psrc))
+                self._reach[psrc] = hit
         return hit
 
     def min_preds(self, achieves) -> np.ndarray:
@@ -172,7 +178,7 @@ class SearchGraph:
                                               INF32), "amin")
         del v
         preds = torch.where(preds == INF32, -1, preds)
-        return self.to_input(preds).cpu().numpy()
+        return trace.d2h(self.to_input(preds)).cpu().numpy()
 
     def start(self, psrc: int, candidates: Optional[int] = None
               ) -> torch.Tensor:
@@ -200,8 +206,9 @@ class SearchGraph:
         depth, cont = 0, True
         while cont and depth < cap_depth:
             depth += 1
-            fw, n_new = self.stepper.step(fw, vw, planes, depth, reach)
-            count = int(n_new.item())
+            with trace.span("gt.driver.level"):
+                fw, n_new = self.stepper.step(fw, vw, planes, depth, reach)
+                count = int(trace.d2h(n_new).item())
             if widths is not None:
                 widths.append(count)
             cont = count > 0
@@ -256,16 +263,19 @@ def _labels(planes, vw, depth: int, n_planes: int, n: int, perm,
     """(n,) int32 labels in input ids from a search's label planes and
     visited words, on the host: only planes up to bit_length(depth) can
     be nonzero; unvisited vertices get INF32."""
-    planes_np = planes.cpu().numpy().reshape(n_planes, -1)
-    visited = host_unpack_words(vw.cpu().numpy(), n).astype(bool)
-    labels = np.zeros(n, dtype=np.int32)
-    for b in range(min(max(depth, 1).bit_length(), n_planes)):
-        labels |= host_unpack_words(planes_np[b], n).astype(np.int32) << b
-    labels[~visited] = INF32
-    if perm is not None:
-        labels = labels[perm]   # back to input ids
-    labels[int(src)] = 0
-    return labels
+    with trace.span("gt.entry.extract"):
+        planes_np = trace.d2h(planes).cpu().numpy().reshape(n_planes, -1)
+        visited = host_unpack_words(trace.d2h(vw).cpu().numpy(),
+                                    n).astype(bool)
+        labels = np.zeros(n, dtype=np.int32)
+        for b in range(min(max(depth, 1).bit_length(), n_planes)):
+            labels |= host_unpack_words(planes_np[b], n).astype(
+                np.int32) << b
+        labels[~visited] = INF32
+        if perm is not None:
+            labels = labels[perm]   # back to input ids
+        labels[int(src)] = 0
+        return labels
 
 
 class _FusedBfs:
@@ -295,7 +305,7 @@ class _FusedBfs:
         psrc = g.internal(src)
         reach = None if self.went_deep else g.reach(psrc)
         sync(g.device)
-        with Timer() as t:
+        with trace.span("gt.entry.search") as t:
             if not self.went_deep:
                 n_planes = min(8, self.planes_full)
                 self._widths = []
@@ -309,8 +319,10 @@ class _FusedBfs:
                 # depth passed the 8-plane cap: the whole search again,
                 # in one launch, with every plane the labels can need
                 n_planes, self.route = self.planes_full, "chain"
-                planes, vw, depth = self.chain()(psrc)
-                depth = int(depth.item())
+                chain = self.chain()
+                with trace.span("gt.driver.chain"):
+                    planes, vw, depth = chain(psrc)
+                    depth = int(trace.d2h(depth).item())
             sync(g.device)
         # label assembly on the host, outside the timed window (the
         # reference times Enact only, tests/bfs/test_bfs.cu:402-431)
@@ -340,17 +352,18 @@ class _SweptBfs:
         planes = torch.zeros((n_planes * rows, 128), dtype=torch.int32,
                              device=sw.device)
         sync(sw.device)
-        with Timer() as t:
+        with trace.span("gt.entry.search") as t:
             depth, cont = 0, True
             while cont and depth < n:
-                nfw = sw(fw) & ~vw
-                vw |= nfw
-                depth += 1
-                for b in range(n_planes):
-                    if (depth >> b) & 1:
-                        planes[b * rows:(b + 1) * rows] |= nfw
-                fw = nfw
-                cont = bool(nfw.any())
+                with trace.span("gt.driver.level"):
+                    nfw = sw(fw) & ~vw
+                    vw |= nfw
+                    depth += 1
+                    for b in range(n_planes):
+                        if (depth >> b) & 1:
+                            planes[b * rows:(b + 1) * rows] |= nfw
+                    fw = nfw
+                    cont = bool(trace.d2h(nfw.any()))
             sync(sw.device)
         return (_labels(planes, vw, depth, n_planes, n, None, src), depth,
                 t.elapsed_ms)
@@ -439,17 +452,19 @@ def _preds(csr: CsrGraph, dev: torch.device, labels_np: np.ndarray,
     """(n,) int32 predecessors from final labels: the least input id
     among the in-neighbours one level up (`SearchGraph.min_preds`); -1
     at the source and at unreached vertices."""
-    g = search_graph(csr, dev)
-    labels = g.to_internal(torch.from_numpy(labels_np).to(g.device), INF32)
+    with trace.span("gt.entry.preds"):
+        g = search_graph(csr, dev)
+        labels = g.to_internal(torch.from_numpy(trace.h2d(labels_np)).to(
+            g.device), INF32)
 
-    def achieves(u, v):
-        # lu + 1 wraps at INF32, where the first test already fails
-        lu = labels[u]
-        return (lu != INF32) & (labels[v] == lu + 1)
+        def achieves(u, v):
+            # lu + 1 wraps at INF32, where the first test already fails
+            lu = labels[u]
+            return (lu != INF32) & (labels[v] == lu + 1)
 
-    preds = g.min_preds(achieves)
-    preds[src] = -1
-    return preds
+        preds = g.min_preds(achieves)
+        preds[src] = -1
+        return preds
 
 
 def bfs_pallas_fused(csr: CsrGraph, src: int, mark_preds: bool = True,

@@ -39,9 +39,9 @@ from gunrockinst_tpu_torch.ops.priority import (near_far_split,
 from gunrockinst_tpu_torch.ops.segment import scatter_min
 from gunrockinst_tpu_torch.ops.value import ValueStepper
 from gunrockinst_tpu_torch.primitives.base import (INF32, GraphLike, Stats,
-                                                   Timer, device_graph,
-                                                   sync)
+                                                   device_graph, sync)
 from gunrockinst_tpu_torch.primitives.bfs_pallas import search_graph
+from gunrockinst_tpu_torch.utils import trace
 
 INT_MAX = INF32
 F_INF = float("inf")
@@ -130,7 +130,8 @@ def sssp_kernel(graph: DeviceGraph, src: int, delta: float,
                 # vertex (one bump a round would stall for a tiny delta)
                 level = next_nonempty_level(pending, dist, level, delta_t)
         it += 1
-    return dist, min_preds(graph, dist, src), it
+    with trace.span("gt.entry.preds"):
+        return dist, min_preds(graph, dist, src), it
 
 _planes_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
@@ -150,8 +151,9 @@ class _SsspPlanes:
             const_w = (float(np.float32(w.flat[0]))
                        if w is not None and w.size else 1.0)
         else:
-            weights = torch.from_numpy(np.ascontiguousarray(
-                w, dtype=np.float32)).to(device)
+            with trace.span("gt.setup.upload"):
+                weights = torch.from_numpy(trace.h2d(np.ascontiguousarray(
+                    w, dtype=np.float32))).to(device)
         # the push and touched routes walk the out-edges: the graph's own
         # out-CSR, unless per-edge weights need the stepper's own
         # out-edge order
@@ -177,30 +179,35 @@ class _SsspPlanes:
         g = self.g
         vals, ch = self.start(src)
         sync(g.device)
-        with Timer() as t:
+        with trace.span("gt.entry.search") as t:
             vals, it = self.stepper.fixpoint(vals, ch, self.limit)
             sync(g.device)
-        dist = g.to_input(vals.view(torch.float32)).cpu().numpy()
-        return dist, it, t.elapsed_ms
+        with trace.span("gt.entry.extract"):
+            dist = trace.d2h(g.to_input(vals.view(torch.float32))).cpu()
+            return dist.numpy(), it, t.elapsed_ms
 
     def preds(self, dist_np: np.ndarray, src: int) -> np.ndarray:
         """preds[v] = least input id of the in-neighbours u with
         dist[u] + w(u,v) == dist[v] (one f32 add), -1 where there is
         none and at the source (sssp.py:267-279), over the device CSC
         and weights the sweeps read."""
-        g, st = self.g, self.stepper
-        dist = g.to_internal(torch.from_numpy(dist_np).to(g.device),
-                             float("inf"))
-        w = (st.weights if st.weights is not None else torch.tensor(
-            st.const_w, dtype=torch.float32, device=g.device))
+        with trace.span("gt.entry.preds"):
+            g, st = self.g, self.stepper
+            dist = g.to_internal(torch.from_numpy(trace.h2d(dist_np)).to(
+                g.device), float("inf"))
+            w = st.weights
+            if w is None:
+                w = trace.h2d(torch.tensor(st.const_w, dtype=torch.float32,
+                                           device=g.device))
 
-        def achieves(u, v):
-            du, dv = dist[u], dist[v]
-            return torch.isfinite(du) & torch.isfinite(dv) & (du + w == dv)
+            def achieves(u, v):
+                du, dv = dist[u], dist[v]
+                return (torch.isfinite(du) & torch.isfinite(dv)
+                        & (du + w == dv))
 
-        preds = g.min_preds(achieves)
-        preds[src] = -1
-        return preds
+            preds = g.min_preds(achieves)
+            preds[src] = -1
+            return preds
 
 
 def get_sssp_planes(csr: CsrGraph, device: DeviceLike = None) -> _SsspPlanes:
@@ -243,51 +250,68 @@ def run(graph: GraphLike, src: int, delta: Optional[float] = None,
 
     `device=None` runs on the CUDA card and raises without one;
     `device="cpu"` runs there (the kernel's plain version for
-    "planes")."""
+    "planes").  The call is traced under `gt.sssp.run`
+    (`utils/trace.py`)."""
+    with trace.call("gt.sssp.run", "sssp", src) as root:
+        res = _run(graph, src, delta, mode, mark_preds, device)
+        root.set_route(res.stats.route or mode)
+        return res
+
+
+def _run(graph, src, delta, mode, mark_preds, device) -> SsspResult:
     dev = resolve_device(device)
     if mode == "planes":
         return _run_planes(graph, src, mark_preds, dev)
     g = device_graph(graph, dev)
-    if not 0 <= int(src) < g.n:
-        raise ValueError(f"source vertex {src} out of range [0, {g.n})")
-    # negative weights: neither delta-stepping nor the reference's
-    # atomicMin relax (sssp_functor.cuh:64) terminates meaningfully on
-    # negative cycles, and the Dijkstra oracle is undefined
-    if bool((g.edge_w < 0).any()):
-        raise ValueError("SSSP requires non-negative edge weights")
+    with trace.span("gt.entry.check"):
+        if not 0 <= int(src) < g.n:
+            raise ValueError(f"source vertex {src} out of range [0, {g.n})")
+        # negative weights: neither delta-stepping nor the reference's
+        # atomicMin relax (sssp_functor.cuh:64) terminates meaningfully
+        # on negative cycles, and the Dijkstra oracle is undefined
+        if bool(trace.d2h((g.edge_w < 0).any())):
+            raise ValueError("SSSP requires non-negative edge weights")
     if delta is None:
         delta = default_delta(g)
-    sssp_kernel(g, src, delta, mode=mode)       # warm-up
-    sync(dev)
-    with Timer() as t:
+    with trace.span("gt.entry.warmup"):
+        sssp_kernel(g, src, delta, mode=mode)
+        sync(dev)
+    with trace.span("gt.entry.search") as t:
         dist, preds, it = sssp_kernel(g, src, delta, mode=mode)
         sync(dev)
-    dist_np = dist[: g.n].cpu().numpy()
-    visited = np.isfinite(dist_np)
-    deg = g.out_degree[: g.n].cpu().numpy()
-    stats = Stats(elapsed_ms=t.elapsed_ms, search_depth=it,
-                  nodes_visited=int(visited.sum()),
-                  edges_visited=int(deg[visited].sum()), route=mode)
-    return SsspResult(dist=dist_np,
-                      preds=preds[: g.n].cpu().numpy() if mark_preds
-                      else None, stats=stats)
+    with trace.span("gt.entry.extract"):
+        dist_np = trace.d2h(dist[: g.n]).cpu().numpy()
+    preds_np = None
+    if mark_preds:
+        with trace.span("gt.entry.preds"):
+            preds_np = trace.d2h(preds[: g.n]).cpu().numpy()
+    with trace.span("gt.entry.stats"):
+        visited = np.isfinite(dist_np)
+        deg = trace.d2h(g.out_degree[: g.n]).cpu().numpy()
+        stats = Stats(elapsed_ms=t.elapsed_ms, search_depth=it,
+                      nodes_visited=int(visited.sum()),
+                      edges_visited=int(deg[visited].sum()), route=mode)
+    return SsspResult(dist=dist_np, preds=preds_np, stats=stats)
 
 
 def _run_planes(graph, src, mark_preds, dev) -> SsspResult:
-    if not isinstance(graph, CsrGraph):
-        raise TypeError("mode='planes' needs a host CsrGraph")
-    if not 0 <= int(src) < graph.num_nodes:
-        raise ValueError(
-            f"source vertex {src} out of range [0, {graph.num_nodes})")
-    if graph.edge_values is not None and np.any(graph.edge_values < 0):
-        raise ValueError("SSSP requires non-negative edge weights")
+    with trace.span("gt.entry.check"):
+        if not isinstance(graph, CsrGraph):
+            raise TypeError("mode='planes' needs a host CsrGraph")
+        if not 0 <= int(src) < graph.num_nodes:
+            raise ValueError(
+                f"source vertex {src} out of range [0, {graph.num_nodes})")
+        if graph.edge_values is not None and np.any(graph.edge_values < 0):
+            raise ValueError("SSSP requires non-negative edge weights")
     fn = get_sssp_planes(graph, dev)
-    fn(src)                 # warm-up: the first call builds the kernel
+    with trace.span("gt.entry.warmup"):
+        fn(src)             # the first call builds the kernel
     dist_np, it, device_ms = fn(src)
     preds_np = fn.preds(dist_np, int(src)) if mark_preds else None
-    visited = np.isfinite(dist_np)
-    deg = np.diff(graph.row_offsets)
-    stats = Stats(elapsed_ms=device_ms, search_depth=int(it),
-                  nodes_visited=int(visited.sum()),
-                  edges_visited=int(deg[visited].sum()))
+    with trace.span("gt.entry.stats"):
+        visited = np.isfinite(dist_np)
+        deg = np.diff(graph.row_offsets)
+        stats = Stats(elapsed_ms=device_ms, search_depth=int(it),
+                      nodes_visited=int(visited.sum()),
+                      edges_visited=int(deg[visited].sum()))
     return SsspResult(dist=dist_np, preds=preds_np, stats=stats)

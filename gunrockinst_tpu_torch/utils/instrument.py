@@ -23,8 +23,8 @@ and makes one host read at its end.  A round whose frontier (pending
 set; CC: last round's change) is already empty changes no state, and
 the round counter only counts rounds that had work, so the slice ends
 in the state of the reference's `lax.while_loop`, which stops there.
-Each slice runs under `torch.profiler.record_function` with the JAX
-package's annotation name.
+Each slice runs under a span of `utils/trace.py` (in a profiler's trace,
+a record function) with the JAX package's annotation name.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from gunrockinst_tpu_torch.device import DeviceLike, resolve_device
 from gunrockinst_tpu_torch.ops import frontier as fr
 from gunrockinst_tpu_torch.ops.segment import scatter_min, scatter_or
 from gunrockinst_tpu_torch.primitives.base import GraphLike, device_graph
+from gunrockinst_tpu_torch.utils import trace
 
 INT_MAX = np.iinfo(np.int32).max
 
@@ -142,7 +143,7 @@ class _Stepped:
         if self.done:
             return False
         t0 = time.perf_counter()
-        with torch.profiler.record_function(self._annotation()):
+        with trace.span(self._annotation()):
             scalars = self._slice()
             t1 = time.perf_counter()    # queued; the device working
             iteration, size, more = torch.stack(

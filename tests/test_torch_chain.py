@@ -21,6 +21,7 @@ from gunrockinst_tpu_torch.ops import chain
 from gunrockinst_tpu_torch.ops.words import host_unpack_words
 from gunrockinst_tpu_torch.oracles import bfs_reference
 from gunrockinst_tpu_torch.primitives import bfs, bfs_pallas
+from gunrockinst_tpu_torch.utils import trace
 
 INF32 = np.iinfo(np.int32).max
 CPU = torch.device("cpu")
@@ -116,9 +117,9 @@ def test_chain_rejects_bad_arguments():
             fn(src)
     with pytest.raises(ValueError):
         chain.ChainBfs(g, 0)
-    before = chain.launches
+    before = trace.totals().get("launch.chain_bfs", 0)
     fn(0)                        # the plain version: no kernel launch
-    assert chain.launches == before
+    assert trace.totals().get("launch.chain_bfs", 0) == before
 
 
 def test_fused_deep_search_takes_chain_route(monkeypatch):

@@ -18,6 +18,7 @@ from gunrockinst_tpu_torch.ops import pull
 from gunrockinst_tpu_torch.ops.words import words_from_mask
 from gunrockinst_tpu_torch.oracles import bfs_reference
 from gunrockinst_tpu_torch.primitives import bfs, bfs_pallas
+from gunrockinst_tpu_torch.utils import trace
 
 import torch
 
@@ -112,9 +113,9 @@ def test_sweeper_rejects_bad_maps():
             sw(bad)
         with pytest.raises(ValueError):
             sw.sweep_fused(good, bad)
-    before = pull.launches
+    before = trace.totals().get("launch.touch_sweep", 0)
     sw(good)                     # the plain version: no kernel launch
-    assert pull.launches == before
+    assert trace.totals().get("launch.touch_sweep", 0) == before
 
 
 @pytest.mark.parametrize("max_depth", [None, 2])

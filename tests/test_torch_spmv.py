@@ -22,6 +22,7 @@ from gunrockinst_tpu_torch.graph.csr import CsrGraph
 from gunrockinst_tpu_torch.ops import spmv, value
 from gunrockinst_tpu_torch.oracles import pagerank_reference
 from gunrockinst_tpu_torch.primitives import pr
+from gunrockinst_tpu_torch.utils import trace
 
 CPU = torch.device("cpu")
 GRAPHS = {
@@ -54,9 +55,10 @@ def test_sweeper_matches_reference(name):
     want = np.asarray(RefSweeper(plan, interpret=True)(
         jnp.asarray(_contrib(n, plan.out_rows * 128, 3))))[:n]
     sw = pr.get_spmv_sweeper(port, CPU)
-    before = spmv.launches
+    before = trace.totals().get("launch.spmv", 0)
     got = sw(torch.from_numpy(_contrib(n, sw.n_pad, 3)))
-    assert spmv.launches == before       # the plain version counts none
+    # the plain version counts none
+    assert trace.totals().get("launch.spmv", 0) == before
     assert got.dtype == torch.float32 and got.shape == (sw.n_pad,)
     np.testing.assert_allclose(got[:n].numpy(), want, rtol=1e-5, atol=1e-6)
     assert not got[n:].any()
