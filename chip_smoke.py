@@ -23,7 +23,9 @@ Phases, each of which raises on failure:
                one from a random vertex, the step kernel's nfw, vw',
                planes' and n_new equal its plain PyTorch version's bit
                for bit, with the direction left to the kernel, forced to
-               push and forced to pull; then the whole search as the
+               push and forced to pull, and the direction the kernel
+               wrote beside n_new equals `last_direction()` (and the
+               forced order); then the whole search as the
                main path runs it (each level's input the kernel's own
                output) equals the plain version's last state.  The same
                on the edge-case graphs: the star of `edge_graphs` both
@@ -650,6 +652,8 @@ def compare_search(g, psrc, label):
             vw_k, planes_k = vw.clone(), planes.clone()
             nfw_k, new_k = st.step(fw, vw_k, planes_k, d, reach, **kw)
             torch.cuda.synchronize()
+            check_level_word(st, new_k, int(want[3]), how,
+                             f"{label} level {d}")
             for name, got, exp in zip(("nfw", "vw'", "planes'", "n_new"),
                                       (nfw_k, vw_k, planes_k, new_k), want):
                 err = int((got.long() - exp.long()).abs().max())
@@ -671,9 +675,23 @@ def compare_search(g, psrc, label):
                              f"expected {len(levels)})")
     print(f"  {label}: {len(levels)} levels equal to the plain version, "
           f"{' and '.join(hows)} (tolerance: bitwise; new per level "
-          f"{[lv['n_new'] for lv in levels]}); the chained search too",
+          f"{[lv['n_new'] for lv in levels]}; the direction read beside "
+          f"n_new equal to last_direction()); the chained search too",
           flush=True)
     return levels, reach, max_err
+
+
+def check_level_word(st, n_new, want_new, how, label):
+    """The direction the kernel wrote beside `n_new` (read with the
+    count in the level loop's one read) against the slot's
+    `last_direction()` and, where forced, the order asked for; the
+    count read with it equals the plain version's."""
+    count, way = st.read_level(n_new)
+    slot = st.last_direction()
+    if count != want_new or way != slot or how not in ("auto", way):
+        raise AssertionError(
+            f"{label} ({how}): read beside n_new {count} and {way!r}, "
+            f"expected {want_new} and the slot's {slot!r}")
 
 
 def raw_alias(t):

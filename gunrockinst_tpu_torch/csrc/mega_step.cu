@@ -8,7 +8,7 @@
 //   nfw        = touched & reach & ~vw
 //   vw'        = vw | nfw                     (in place)
 //   planes'[b] = planes[b] | nfw  for each bit b set in d   (in place)
-//   n_new      = popcount(nfw)
+//   n_new      = popcount(nfw), and beside it the order the level took
 //
 // `reach` is a superset of what the search can still claim (the
 // source's connected component, or every vertex with an in-edge), so
@@ -73,6 +73,9 @@
 //     done (the nonzero nfw words, vw' and the plane words by their one
 //     owner, plain stores).  A level with few candidates costs one coalesced load per
 //     32 words.
+//   * The direction taken goes to the int after n_new (kPush or kPull),
+//     written by block 0 in every launch, so that the host's one read of
+//     the level's count also says which order ran.
 //   * Counts: each block adds its claims (to n_new and the out-slot), its
 //     claimed out-edges and (in a pull) its candidates to the out-slot,
 //     one reduction each, which nothing in the launch waits on; n_new
@@ -126,7 +129,8 @@ struct Step {
   const uint32_t* reach;                 // (n_words,)
   uint32_t* planes;                      // (n_planes*n_words,) in place
   uint32_t* nfw;                         // (n_words,) out, comes zeroed
-  int32_t* n_new;                        // (1,) out, comes zeroed
+  int32_t* n_new;                        // (2,) out: claims, comes zeroed;
+                                         // then the direction taken
   uint32_t* zero_next;                   // (n_words + 128,) zeroed here
   int32_t* slots;                        // (kSlots * kSlotInts,)
   int32_t* hub_tag;                      // (n,) the launch that listed u
@@ -267,6 +271,7 @@ mega_step_kernel(const Step a) {
     s_cand = 0;
     if (blockIdx.x == 0) {
       out[kDir] = dir;
+      a.n_new[1] = dir;
       out[kSeq] = a.seq;
       for (int s = 0; s < kSlots; ++s) {   // read by no launch before the next
         if (s == a.in_slot || s == a.out_slot) continue;
@@ -550,7 +555,8 @@ extern "C" int gt_mega_slot_ints() { return kSlots * kSlotInts; }
 // in_slot and out_slot.  `hub_tag` (n ints) holds the numbers of the
 // launches that listed each hub; `seq` must differ from every number
 // there but those of the slot in_slot (the wrapper counts up by two).
-// `nfw` (n_words ints) and `n_new` (one int) must come zeroed;
+// `nfw` (n_words ints) and `n_new[0]` must come zeroed; `n_new[1]` gets
+// the direction taken (1 push, 2 pull);
 // `zero_next` (n_words + 128 ints, 16-byte aligned) is zeroed for the
 // next call's.  Returns the cudaError_t of the launches (0 on success);
 // the caller raises on any other value.

@@ -135,21 +135,26 @@ def relabeled(csr: CsrGraph) -> Tuple[CsrGraph, Optional[np.ndarray]]:
     order (region skip + packing density); near-uniform DEEP graphs
     get the breadth-first order (wavefront locality).  Cached per
     CsrGraph (the permuted graph is itself the key for the downstream
-    plan caches, so it must be stable)."""
+    plan caches, so it must be stable).  The order taken is counted once
+    per graph, `relabel.degree`, `relabel.breadth` or `relabel.none`;
+    the breadth-first probe has its own span, `gt.setup.depth_probe`."""
     hit = _relabel_cache.get(csr)
     if hit is not None:
         return hit
     with trace.span("gt.setup.relabel"):
         if worth_relabeling(csr):
             perm = degree_perm(csr)
-            out = (apply_perm(csr, perm), perm)
+            order = "degree"
         else:
             perm = None
             if csr.num_nodes >= 2 * 65536 and os.environ.get(
                     "GT_BFS_RELABEL", "1") != "0":
-                perm = bfs_order_perm(csr)
-            out = ((apply_perm(csr, perm), perm) if perm is not None
-                   else (csr, None))
+                with trace.span("gt.setup.depth_probe"):
+                    perm = bfs_order_perm(csr)
+            order = "none" if perm is None else "breadth"
+        out = ((apply_perm(csr, perm), perm) if perm is not None
+               else (csr, None))
+        trace.count(f"relabel.{order}")
     _relabel_cache[csr] = out
     return out
 

@@ -45,7 +45,10 @@ checked against fw: a listed hub is walked only if fw holds it, and a
 frontier vertex leaves its out-list to that walk only if the slot's
 launch listed it (each launch tags the hubs it lists with its own
 number, `seq`, in a per-vertex array).  `direction="push"` or `"pull"`
-forces an order, for the smoke run and the tests only.
+forces an order, for the smoke run and the tests only.  The kernel also
+writes the order it took into the int after `n_new`, so that
+`read_level` reads a level's count and its direction in the one host
+read the level loop makes anyway.
 
 The wrapper launches the kernel for CUDA tensors and takes the plain
 versions, `step_reference` (pull) and `push_reference` (push), only for
@@ -70,6 +73,7 @@ DIRECTIONS = ("auto", "push", "pull")
 _CODE = {"auto": 0, "push": 1, "pull": 2}
 _SLOTS = 4          # stats slots on the card (mega_step.cu's kSlots)
 _DIR_AT = 4         # a slot's "direction taken" (kDir)
+_DIRECTION = {1: "push", 2: "pull"}     # the kernel's codes
 
 
 def _kernel_fn():
@@ -211,6 +215,7 @@ class MegaStepper:
         self._next = None       # the zeroed buffer of the next nfw, n_new
         self._start = None      # (fw, psrc, candidates) `start` made last
         self._cpu_direction = None
+        self._word = None       # the last launch's (n_new, direction)
 
     def edge_dst(self) -> torch.Tensor:
         """Destination of every CSC edge, cached (for the plain versions;
@@ -283,7 +288,21 @@ class MegaStepper:
         if self._slots is None:
             raise RuntimeError("no level has run yet")
         at = self._slot * self._slot_ints + _DIR_AT
-        return {1: "push", 2: "pull"}[int(self._slots[at].item())]
+        return _DIRECTION[int(self._slots[at].item())]
+
+    def read_level(self, n_new: torch.Tensor) -> Tuple[int, Optional[str]]:
+        """(the vertices the last call claimed, the order it took): one
+        blocking host read, counted.  `n_new` is what that call
+        returned.  On the card the kernel wrote the order beside
+        `n_new`, and both ints come back as one int64 in the read that
+        `.item()` makes of the count alone.  On the CPU the order is
+        None until a level has run here."""
+        if self.device.type == "cpu":
+            return int(trace.d2h(n_new).item()), self._cpu_direction
+        if self._word is None or n_new.data_ptr() != self._word.data_ptr():
+            raise ValueError("n_new is not the one the last step returned")
+        both = int(trace.d2h(self._word).item())
+        return both & 0xffffffff, _DIRECTION[both >> 32]
 
     def step(self, fw: torch.Tensor, vw: torch.Tensor,
              planes: torch.Tensor, d: int, reach: torch.Tensor,
@@ -353,6 +372,8 @@ class MegaStepper:
         nxt = torch.empty((self.rows + 1, 128), dtype=torch.int32,
                           device=self.device)
         nfw, n_new = buf[:self.rows], buf[self.rows, :1]
+        # n_new and the direction word after it, little-endian
+        self._word = buf[self.rows, :2].view(torch.int64)
         self._last_nfw = self._next = None
         self._seq += 2
         err = _kernel_fn()(

@@ -56,6 +56,31 @@ from gunrockinst_tpu_torch.utils import trace
 REACH_CACHE = 64    # per-source reach masks kept on the device
 
 
+def download(t: torch.Tensor) -> np.ndarray:
+    """`t` on the host, counted as one host read.  From a CUDA device
+    the copy lands in a page-locked block of PyTorch's caching host
+    allocator, so that the card's part is one DMA that does not wait on
+    the host's paging, and the array returned owns that block."""
+    trace.d2h(t)
+    if t.device.type != "cuda":
+        return t.cpu().numpy()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t)
+    return out.numpy()
+
+
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array `a` on `device`, its bytes counted; to a CUDA device
+    through a page-locked block, filled by NumPy (a PyTorch CPU copy
+    would wake the intra-op threads, which then spin)."""
+    host = torch.from_numpy(trace.h2d(a))
+    if device.type != "cuda":
+        return host.to(device)
+    buf = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+    np.copyto(buf.numpy(), a)
+    return buf.to(device)
+
+
 def first_candidates(reach_words: np.ndarray, psrc: int) -> int:
     """The candidates of a search's first level: the vertices of the
     host reach mask other than the source."""
@@ -176,7 +201,7 @@ class SearchGraph:
             self._preds_plan = preds_op.plan(st.offsets, self._perm)
         out = preds_op.min_preds(st.offsets, st.in_src, vals,
                                  self._preds_plan, weights, const_w)
-        return trace.d2h(out).cpu().numpy()
+        return download(out)
 
     def start(self, psrc: int, candidates: Optional[int] = None
               ) -> torch.Tensor:
@@ -196,7 +221,8 @@ class SearchGraph:
         cont); depth counts the last, empty level, and cont is True
         when the cap stopped the search.  `candidates`: see `start`.
         Each level's count of new vertices is appended to `widths`, if
-        given."""
+        given.  Each level's span counts the order the step kernel took,
+        `level.push` or `level.pull`, read with the count."""
         fw = self.start(psrc, candidates)
         vw = fw.clone()
         planes = torch.zeros((n_planes * self.rows, 128),
@@ -206,7 +232,9 @@ class SearchGraph:
             depth += 1
             with trace.span("gt.driver.level"):
                 fw, n_new = self.stepper.step(fw, vw, planes, depth, reach)
-                count = int(trace.d2h(n_new).item())
+                count, way = self.stepper.read_level(n_new)
+                if way is not None:
+                    trace.count(f"level.{way}")
             if widths is not None:
                 widths.append(count)
             cont = count > 0
@@ -262,9 +290,8 @@ def _labels(planes, vw, depth: int, n_planes: int, n: int, perm,
     visited words, on the host: only planes up to bit_length(depth) can
     be nonzero; unvisited vertices get INF32."""
     with trace.span("gt.entry.extract"):
-        planes_np = trace.d2h(planes).cpu().numpy().reshape(n_planes, -1)
-        visited = host_unpack_words(trace.d2h(vw).cpu().numpy(),
-                                    n).astype(bool)
+        planes_np = download(planes).reshape(n_planes, -1)
+        visited = host_unpack_words(download(vw), n).astype(bool)
         labels = np.zeros(n, dtype=np.int32)
         for b in range(min(max(depth, 1).bit_length(), n_planes)):
             labels |= host_unpack_words(planes_np[b], n).astype(
@@ -452,8 +479,7 @@ def _preds(csr: CsrGraph, dev: torch.device, labels_np: np.ndarray,
     at the source and at unreached vertices."""
     with trace.span("gt.entry.preds"):
         g = search_graph(csr, dev)
-        labels = g.to_internal(torch.from_numpy(trace.h2d(labels_np)).to(
-            g.device), INF32)
+        labels = g.to_internal(upload(labels_np, g.device), INF32)
         preds = g.min_preds(labels)
         preds[src] = -1
         return preds

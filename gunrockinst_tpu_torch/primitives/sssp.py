@@ -40,7 +40,9 @@ from gunrockinst_tpu_torch.ops.segment import scatter_min
 from gunrockinst_tpu_torch.ops.value import ValueStepper
 from gunrockinst_tpu_torch.primitives.base import (INF32, GraphLike, Stats,
                                                    device_graph, sync)
-from gunrockinst_tpu_torch.primitives.bfs_pallas import search_graph
+from gunrockinst_tpu_torch.primitives.bfs_pallas import (download,
+                                                         search_graph,
+                                                         upload)
 from gunrockinst_tpu_torch.utils import trace
 
 INT_MAX = INF32
@@ -183,8 +185,8 @@ class _SsspPlanes:
             vals, it = self.stepper.fixpoint(vals, ch, self.limit)
             sync(g.device)
         with trace.span("gt.entry.extract"):
-            dist = trace.d2h(g.to_input(vals.view(torch.float32))).cpu()
-            return dist.numpy(), it, t.elapsed_ms
+            dist = download(g.to_input(vals.view(torch.float32)))
+            return dist, it, t.elapsed_ms
 
     def preds(self, dist_np: np.ndarray, src: int) -> np.ndarray:
         """preds[v] = least input id of the in-neighbours u with
@@ -193,8 +195,7 @@ class _SsspPlanes:
         and weights the sweeps read."""
         with trace.span("gt.entry.preds"):
             g, st = self.g, self.stepper
-            dist = g.to_internal(torch.from_numpy(trace.h2d(dist_np)).to(
-                g.device), float("inf"))
+            dist = g.to_internal(upload(dist_np, g.device), float("inf"))
             preds = g.min_preds(dist, st.weights, st.const_w)
             preds[src] = -1
             return preds

@@ -31,7 +31,11 @@ process-wide `totals()`.  Names used by the port:
     (`.item()`, `.tolist()`, `.cpu()`), counted whatever the device;
   * `copy.d2h_bytes`, `copy.h2d_bytes`: the bytes of each copy between
     host and device, from the tensors' sizes;
-  * `kernel.build`: each `nvcc` run.
+  * `kernel.build`: each `nvcc` run;
+  * `level.push`, `level.pull`: the order each level of the step
+    kernel's search took (`SearchGraph.search`);
+  * `relabel.degree`, `relabel.breadth`, `relabel.none`: the order a
+    graph's relabel took, once per graph (`graph/relabel.py`).
 
 The outermost `bfs.run` or `sssp.run` of a thread opens a call record
 (`call`): its primitive, source, route, span tree, and

@@ -304,3 +304,27 @@ def test_one_launch_per_call_that_marks_preds(card, card_graphs, kind):
 
     assert launches(True) == 1
     assert launches(False) == 0
+
+
+def test_download_and_upload_count_and_keep_values():
+    x = np.arange(1000, dtype=np.int32) * 3 - 7
+    trace.reset_totals()
+    back = bfs_pallas.download(bfs_pallas.upload(x, torch.device("cpu")))
+    totals = trace.totals()
+    assert np.array_equal(back, x) and back.dtype == np.int32
+    assert totals["copy.h2d_bytes"] == totals["copy.d2h_bytes"] == x.nbytes
+    assert totals["host_read"] == 1
+
+
+@pytest.mark.card
+def test_pinned_copies_are_the_callers_own(card):
+    a = np.arange(1 << 20, dtype=np.int32)
+    b = a[::-1].copy()
+    on_card = bfs_pallas.upload(a, card)
+    assert on_card.device.type == "cuda"
+    first = bfs_pallas.download(on_card)
+    second = bfs_pallas.download(bfs_pallas.upload(b, card))
+    assert np.array_equal(first, a) and np.array_equal(second, b)
+    assert first.flags.writeable and first.ctypes.data != second.ctypes.data
+    first[0] = -5
+    assert bfs_pallas.download(bfs_pallas.upload(b, card))[0] == b[0]
