@@ -114,8 +114,8 @@ Phases, each of which raises on failure:
                8-plane pass, then step_full);
  11. deep    - bfs.run(csr, src, traversal_mode="auto") at grid-1024^2
                from argmax(degrees): route "chain", labels and preds
-               equal the NumPy oracle; one more search once went_deep is
-               set takes exactly one chain launch;
+               equal the NumPy oracle; one more call once went_deep is
+               set takes exactly one chain launch and no warm-up search;
  12. touch   - the touched sweep and its fused form (& ~vw) equal the
                plain version at every level of a top-degree and a random
                search at rmat-s14 and rmat-s20 (no relabeling), at every
@@ -481,6 +481,13 @@ def launches_of(kernel: str) -> int:
     """Launches of `kernel` since `zero_launches` last named it (or
     reset every total)."""
     return _launch_total(kernel) - _launch_base.get(kernel, 0)
+
+
+def warm_ups() -> int:
+    """The entry points' warm-up searches so far (`warmup.search`): one
+    on a cached search object's first call and one on a route switch."""
+    from gunrockinst_tpu_torch.utils import trace
+    return trace.totals().get("warmup.search", 0)
 
 
 def phase(name):
@@ -1686,16 +1693,21 @@ def chain_phase(csr14, dev, card):
 def chain_path(csr, dev, card, counts):
     """Phase 11: bfs.run auto at grid-1024^2 through route "chain",
     exact against the oracle; the chain kernel's launches of the call
-    go into `counts`, then one more search must take exactly one."""
+    (its warm-up search's among them: the graph's first call) go into
+    `counts`, then one more call must take exactly one and no
+    warm-up."""
     t0 = phase("11 bfs.run auto, grid-1024^2")
     src = int(np.argmax(csr.degrees))
     zero_launches("chain_bfs")
+    warm = warm_ups()
     res = bfs.run(csr, src, traversal_mode="auto")
+    warm = warm_ups() - warm
     counts["bfs.run auto, grid-1024^2"] = launches_of("chain_bfs")
     print(f"  route {res.stats.route}, depth {res.stats.search_depth}, "
           f"{res.stats.nodes_visited} vertices, {res.stats.elapsed_ms:.3f}"
           f" ms (timed call); chain launches {launches_of('chain_bfs')} "
-          f"(warm-up and timed call) [{card}]", flush=True)
+          f"({warm} in warm-up searches, 1 in the timed one) [{card}]",
+          flush=True)
     if res.stats.route != "chain":
         raise AssertionError(f"route {res.stats.route!r}, expected "
                              "'chain'")
@@ -1703,11 +1715,17 @@ def chain_path(csr, dev, card, counts):
     if not fn.went_deep:
         raise AssertionError("the deep search did not set went_deep")
     zero_launches("chain_bfs")
-    fn(src)
-    if launches_of("chain_bfs") != 1:
+    warm = warm_ups()
+    again = bfs.run(csr, src, traversal_mode="auto")
+    if launches_of("chain_bfs") != 1 or warm_ups() != warm:
         raise AssertionError(f"{launches_of('chain_bfs')} chain launches "
-                             "for one "
-                             "search once went_deep is set, expected 1")
+                             f"and {warm_ups() - warm} warm-up searches "
+                             "for one more call once went_deep is set, "
+                             "expected 1 and 0")
+    if not (np.array_equal(again.labels, res.labels)
+            and np.array_equal(again.preds, res.preds)):
+        raise AssertionError("the second grid bfs.run differs from the "
+                             "first")
     t1 = time.perf_counter()
     ref_labels, ref_preds = bfs_reference(csr, src)
     print(f"  oracle {time.perf_counter() - t1:.1f} s", flush=True)

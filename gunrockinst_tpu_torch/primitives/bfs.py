@@ -37,7 +37,8 @@ from gunrockinst_tpu_torch.ops.advance import advance_sparse, degree_sum
 from gunrockinst_tpu_torch.ops.segment import scatter_min, scatter_or
 from gunrockinst_tpu_torch.primitives import bfs_pallas
 from gunrockinst_tpu_torch.primitives.base import (INF32, GraphLike, Stats,
-                                                   device_graph, sync)
+                                                   device_graph, sync,
+                                                   warm_search)
 from gunrockinst_tpu_torch.utils import trace
 
 INT_MAX = INF32
@@ -234,15 +235,13 @@ def _run_kernels(graph, src, mark_preds, traversal_mode, dev):
         if not 0 <= int(src) < graph.num_nodes:
             raise ValueError(f"source vertex {src} out of range "
                              f"[0, {graph.num_nodes})")
-    variant = "mega" if traversal_mode == "mega" else "fused"
-    # warm-up: the first call builds and loads the kernels
-    with trace.span("gt.entry.warmup"):
-        bfs_pallas.bfs_pallas_fused(graph, src, mark_preds=False,
-                                    variant=variant, device=dev)
+    fn = bfs_pallas.get_fused_bfs(graph, traversal_mode == "mega", dev)
     # timed: device traversal only (reference times Enact(); Extract
-    # runs outside the GpuTimer, tests/bfs/test_bfs.cu:402-431)
-    labels_np, preds_np, _, device_ms = bfs_pallas.bfs_pallas_fused(
-        graph, src, mark_preds=mark_preds, variant=variant, device=dev)
+    # runs outside the GpuTimer, tests/bfs/test_bfs.cu:402-431), after
+    # a warm-up search on the search object's first call only
+    labels_np, _, device_ms = warm_search(fn, src)
+    preds_np = (bfs_pallas._preds(graph, dev, labels_np, src)
+                if mark_preds else None)
     with trace.span("gt.entry.stats"):
         visited = labels_np != INF32
         deg = np.diff(graph.row_offsets)
@@ -256,7 +255,6 @@ def _run_kernels(graph, src, mark_preds, traversal_mode, dev):
             # every visited vertex's out-edges are scanned once and
             # dedup is exact (bit OR): enqueues equal useful edge visits
             total_queued=edges,
-            route=bfs_pallas.get_fused_bfs(graph, variant == "mega",
-                                           dev).route,
+            route=fn.route,
         )
     return BfsResult(labels=labels_np, preds=preds_np, stats=stats)

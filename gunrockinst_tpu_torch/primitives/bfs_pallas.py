@@ -305,13 +305,15 @@ def _labels(planes, vw, depth: int, n_planes: int, n: int, perm,
 
 class _FusedBfs:
     """The mega branch: fn(src) -> (labels (n,) int32 in input ids,
-    depth, device_ms); `route` names the route the last call took."""
+    depth, device_ms); `route` names the route the last call took and
+    `warm_routes` the routes a call has completed."""
 
     def __init__(self, g: SearchGraph):
         self.g = g
         self.planes_full = max((g.n + 1).bit_length(), 1)
         self.went_deep = False
         self.route = ""
+        self.warm_routes = set()
         self._chain = None
         self._widths = []   # new vertices a level of the deep search
 
@@ -351,20 +353,23 @@ class _FusedBfs:
             sync(g.device)
         # label assembly on the host, outside the timed window (the
         # reference times Enact only, tests/bfs/test_bfs.cu:402-431)
-        return (_labels(planes, vw, depth, n_planes, g.n, g.perm, src),
-                depth, t.elapsed_ms)
+        labels = _labels(planes, vw, depth, n_planes, g.n, g.perm, src)
+        self.warm_routes.add(self.route)
+        return labels, depth, t.elapsed_ms
 
 
 class _SweptBfs:
     """The grid-stepped branch: fn(src) -> (labels, depth, device_ms),
     levels of the touched sweep from a host loop over the unrelabeled
     graph, with full planes, up to n levels; depth counts the last,
-    empty level."""
+    empty level.  `warm_routes` holds "sweep" once a call has
+    completed."""
 
     route = "sweep"
 
     def __init__(self, csr: CsrGraph, device: torch.device):
         self.n = csr.num_nodes
+        self.warm_routes = set()
         self.sweeper = get_pull_sweeper(csr, device)
         self.planes_full = max((self.n + 1).bit_length(), 1)
 
@@ -390,8 +395,9 @@ class _SweptBfs:
                     fw = nfw
                     cont = bool(trace.d2h(nfw.any()))
             sync(sw.device)
-        return (_labels(planes, vw, depth, n_planes, n, None, src), depth,
-                t.elapsed_ms)
+        labels = _labels(planes, vw, depth, n_planes, n, None, src)
+        self.warm_routes.add(self.route)
+        return labels, depth, t.elapsed_ms
 
 
 def _checked(src: int, n: int) -> int:

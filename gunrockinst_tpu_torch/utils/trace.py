@@ -35,7 +35,10 @@ process-wide `totals()`.  Names used by the port:
   * `level.push`, `level.pull`: the order each level of the step
     kernel's search took (`SearchGraph.search`);
   * `relabel.degree`, `relabel.breadth`, `relabel.none`: the order a
-    graph's relabel took, once per graph (`graph/relabel.py`).
+    graph's relabel took, once per graph (`graph/relabel.py`);
+  * `warmup.search`: each search of the BFS and SSSP kernel routes
+    whose answer is dropped (`primitives/base.py::warm_search`): on a
+    cached search object's first call, and on a route switch.
 
 The outermost `bfs.run` or `sssp.run` of a thread opens a call record
 (`call`): its primitive, source, route, span tree, and
