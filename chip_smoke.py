@@ -377,6 +377,7 @@ from gunrockinst_tpu_torch.oracles import (bc_reference_fast,
 from gunrockinst_tpu_torch.primitives import (bc, bfs, bfs_pallas, cc, hits,
                                               pr, salsa, sssp, wtf)
 from gunrockinst_tpu_torch.primitives.base import device_graph
+from gunrockinst_tpu_torch.primitives.search_graph import search_graph
 
 WATCHDOG_S = 1100          # under the 1200 s limit of a smoke run
 HBM_BYTES_PER_S = 3.35e12
@@ -1263,7 +1264,7 @@ def value_phase(csrs, dev, card):
     t0 = phase("6 value kernel vs plain version")
     value_err, value_rows, cases = 0.0, [], {}
     for scale in (14, 20):
-        g = bfs_pallas.search_graph(csrs[scale], dev)
+        g = search_graph(csrs[scale], dev)
         rng = np.random.default_rng(SEED + scale)
         for name in VALUE_CONFIGS:
             stepper, vals, ch = value_case(g, name, rng)
@@ -1281,7 +1282,7 @@ def value_phase(csrs, dev, card):
             value_err = max(value_err, compare_value(
                 stepper, vals, ch, f"{gname} {name}"))
     err, sweep = long_degree_sweep(cases, card)
-    r_err, routes = route_phase(bfs_pallas.search_graph(csrs[20], dev), card)
+    r_err, routes = route_phase(search_graph(csrs[20], dev), card)
     print(f"  [{card}]", flush=True)
     done(t0)
     return max(value_err, err, r_err), value_rows, sweep, routes
@@ -1408,7 +1409,7 @@ def preds_phase(csr20, planes, src, ref_labels, ref_preds, dev, card,
     from gunrockinst_tpu_torch.ops import preds as preds_op
     t0 = phase("7b min-id preds kernel vs plain version, rmat-s20")
     wcsr, wdist, _ = planes["weights 1..63"]
-    g = bfs_pallas.search_graph(csr20, dev)
+    g = search_graph(csr20, dev)
     wg = sssp.get_sssp_planes(wcsr, dev)
     cases = {
         "bfs": (g, g.to_internal(torch.from_numpy(ref_labels).to(dev),
@@ -1625,15 +1626,15 @@ def chain_phase(csr14, dev, card):
     max_err = 0
     cases = []
     for n in (CHAIN_PATH, CHAIN_DEEP):
-        g = bfs_pallas.search_graph(path_graph(n), dev)
+        g = search_graph(path_graph(n), dev)
         cases.append((g, g.internal(0), f"path-{n} src 0"))
     for side in (64, 256):
         csr = lattice(side)
-        g = bfs_pallas.search_graph(csr, dev)
+        g = search_graph(csr, dev)
         src = int(np.argmax(csr.degrees))
         cases.append((g, g.internal(src), f"grid-{side}^2 src {src}"))
     for kind, csr in (("", csr14), (" directed", graph(14, False))):
-        g = bfs_pallas.search_graph(csr, dev)
+        g = search_graph(csr, dev)
         for which, src in zip(("top-degree", "random"), sources(csr)):
             cases.append((g, g.internal(src), f"s14{kind} {which} src {src}"))
     for g, psrc, label in cases:
@@ -1644,7 +1645,7 @@ def chain_phase(csr14, dev, card):
     side = 1024
     csr = lattice(side)
     t1 = time.perf_counter()
-    g = bfs_pallas.search_graph(csr, dev)
+    g = search_graph(csr, dev)
     src = int(np.argmax(csr.degrees))
     psrc = g.internal(src)
     reach = g.reach(psrc)
@@ -2491,7 +2492,7 @@ def preds_memory_line(csr20, src, labels, want, card):
     """Phase 4's preds, as they were made before and as they are now:
     both equal the oracle's; the card memory each took."""
     dev = resolve_device(None)
-    g = bfs_pallas.search_graph(csr20, dev)
+    g = search_graph(csr20, dev)
     held = []
     old, old_peak, old_held = preds_memory(
         lambda: old_min_preds(g, labels, src, held))
@@ -2966,7 +2967,7 @@ def bfs_variants(csr, dev, card):
     2045-vertex path (one vertex a level: the fixed cost of a level) and
     at grid-1024^2."""
     for scale, csr_s in ((14, graph(14)), (20, csr)):
-        g = bfs_pallas.search_graph(csr_s, dev)
+        g = search_graph(csr_s, dev)
         st = g.stepper
         for which, src in zip(("top-degree", "random"), sources(csr_s)):
             psrc = g.internal(src)
@@ -2979,7 +2980,7 @@ def bfs_variants(csr, dev, card):
                       f"{sum(per) * 1e3:.1f}); per level "
                       + ", ".join(f"{ms * 1e3:.1f}" for ms in per)
                       + f" us [{card}]", flush=True)
-    g = bfs_pallas.search_graph(csr, dev)
+    g = search_graph(csr, dev)
     st = g.stepper
     psrc = g.internal(sources(csr)[0])
     reach = g.reach(psrc)
@@ -3004,7 +3005,7 @@ def bfs_variants(csr, dev, card):
             ("rmat-s18 + tail-400", core_tail_graph(graph(18), 400), None)):
         if src is None:
             src = int(np.argmax(csr_c.degrees))
-        gc = bfs_pallas.search_graph(csr_c, dev)
+        gc = search_graph(csr_c, dev)
         psrc = gc.internal(src)
         if label.startswith("grid"):
             # the step kernel on a road-like graph: the 8-plane pass that
@@ -3106,7 +3107,7 @@ def variants(dev, card, only=None):
         bfs_variants(csr, dev, card)
     if only == "bfs":
         return 0
-    g = bfs_pallas.search_graph(csr, dev)
+    g = search_graph(csr, dev)
     rng = np.random.default_rng(SEED + 20)
     for name in VALUE_CONFIGS:
         st, vals, ch = value_inputs(g.stepper.offsets, g.stepper.in_src,
@@ -3544,7 +3545,7 @@ def main() -> int:
     csrs = {}
     for scale in (14, 20):
         csr = csrs[scale] = graph(scale)
-        g = bfs_pallas.search_graph(csr, dev)
+        g = search_graph(csr, dev)
         for which, src in zip(("top-degree", "random"), sources(csr)):
             label = f"s{scale} {which} src {src}"
             levels, reach, err = compare_search(g, g.internal(src), label)
@@ -3555,11 +3556,11 @@ def main() -> int:
                 timing = rows
     csr14, csr20 = csrs[14], csrs[20]
     for label, csr in step_edge_graphs().items():
-        g = bfs_pallas.search_graph(csr, dev)
+        g = search_graph(csr, dev)
         for which, src in zip(("top-degree", "random"), sources(csr)):
             max_err = max(max_err, compare_search(
                 g, g.internal(src), f"{label} {which} src {src}")[2])
-    g = bfs_pallas.search_graph(csr14, dev)
+    g = search_graph(csr14, dev)
     src = sources(csr14)[1]
     compare_stale_slot(g, g.internal(src), f"s14 random src {src}")
     done(t0)
@@ -3595,7 +3596,7 @@ def main() -> int:
     per_search = (launches["mega_step"] - timed_from) / (3 * MULTI_K)
     # ---- end of the main path ----------------------------------------
     ref_vis = ref_labels != INF32
-    symmetric = is_symmetric(bfs_pallas.search_graph(csr20, dev).csr_p)
+    symmetric = is_symmetric(search_graph(csr20, dev).csr_p)
     edges = 0
     for i, s in enumerate(srcs):
         visited = fn.visited_of(vws[i])
@@ -3613,7 +3614,7 @@ def main() -> int:
           f" best {best:.3f} ms ({best / MULTI_K:.4f} ms/search), median "
           f"{med:.3f} ms; {edges / (best * 1e-3) / 1e9:.4f} GTEPS; "
           f"{per_search:.3f} launches per search [{card}]", flush=True)
-    card_ms = replay_ms(bfs_pallas.search_graph(csr20, dev), srcs, deps,
+    card_ms = replay_ms(search_graph(csr20, dev), srcs, deps,
                         vws)
     busy = sum(card_ms)
     print(f"  replay, no host sync between levels: step kernels "

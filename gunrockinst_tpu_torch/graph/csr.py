@@ -24,12 +24,15 @@ read, field for field the reference's:
 Every index is int32 and every weight float32, as in the reference
 (JAX without x64).  The kernels' own device forms (the relabeled CSC of
 `ops/mega.py`) are separate and are not built from it.
+
+`derived(csr, key, build)` is the port's one cache of what it derives
+from a host graph: each object lives exactly as long as its graph.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Hashable, Optional, TypeVar
 
 import numpy as np
 import torch
@@ -39,6 +42,8 @@ from gunrockinst_tpu_torch.graph.coo import CooGraph
 from gunrockinst_tpu_torch.utils import trace
 
 LANE = 128
+
+T = TypeVar("T")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -54,6 +59,11 @@ class CsrGraph:
     col_indices: np.ndarray
     edge_values: Optional[np.ndarray] = None
     node_values: Optional[np.ndarray] = None
+
+    def __getstate__(self) -> dict:
+        """The arrays only: what `derived` built for the graph (device
+        tensors, kernel handles) stays with this copy."""
+        return {k: v for k, v in self.__dict__.items() if k != "_derived"}
 
     @property
     def num_nodes(self) -> int:
@@ -162,6 +172,19 @@ class CsrGraph:
                   device: DeviceLike = None) -> "DeviceGraph":
         return DeviceGraph.build(self, with_csc=with_csc,
                                  with_values=with_values, device=device)
+
+
+def derived(csr: CsrGraph, key: Hashable, build: Callable[[], T]) -> T:
+    """`build()` for `csr` under `key` (what the object depends on besides
+    the graph: device, branch, keywords), built on the first call and
+    kept exactly as long as `csr` lives.  The table is an attribute of
+    the graph, so no table elsewhere holds the graph, and an object that
+    refers back to it (the relabeling of a graph that is not renumbered
+    is the graph itself) goes with it."""
+    table = csr.__dict__.setdefault("_derived", {})
+    if key not in table:
+        table[key] = build()
+    return table[key]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

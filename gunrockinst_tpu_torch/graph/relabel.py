@@ -45,13 +45,12 @@ in-edge".
 from __future__ import annotations
 
 import os
-import weakref
 from typing import Optional, Tuple
 
 import numpy as np
 
 from gunrockinst_tpu_torch.graph.coo import CooGraph
-from gunrockinst_tpu_torch.graph.csr import CsrGraph
+from gunrockinst_tpu_torch.graph.csr import CsrGraph, derived
 from gunrockinst_tpu_torch.utils import trace
 
 
@@ -97,9 +96,6 @@ def worth_relabeling(csr: CsrGraph) -> bool:
     return int(deg.max()) >= 32 * max(1.0, csr.average_degree())
 
 
-_relabel_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-
-
 def bfs_order_perm(csr: CsrGraph) -> Optional[np.ndarray]:
     """Breadth-first (Cuthill-McKee-style) renumbering from the
     highest-degree vertex: wavefronts of a search become CONTIGUOUS id
@@ -138,65 +134,53 @@ def relabeled(csr: CsrGraph) -> Tuple[CsrGraph, Optional[np.ndarray]]:
     plan caches, so it must be stable).  The order taken is counted once
     per graph, `relabel.degree`, `relabel.breadth` or `relabel.none`;
     the breadth-first probe has its own span, `gt.setup.depth_probe`."""
-    hit = _relabel_cache.get(csr)
-    if hit is not None:
-        return hit
-    with trace.span("gt.setup.relabel"):
-        if worth_relabeling(csr):
-            perm = degree_perm(csr)
-            order = "degree"
-        else:
-            perm = None
-            if csr.num_nodes >= 2 * 65536 and os.environ.get(
-                    "GT_BFS_RELABEL", "1") != "0":
-                with trace.span("gt.setup.depth_probe"):
-                    perm = bfs_order_perm(csr)
-            order = "none" if perm is None else "breadth"
-        out = ((apply_perm(csr, perm), perm) if perm is not None
-               else (csr, None))
-        trace.count(f"relabel.{order}")
-    _relabel_cache[csr] = out
-    return out
-
-
-_comp_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+    def build():
+        with trace.span("gt.setup.relabel"):
+            if worth_relabeling(csr):
+                perm = degree_perm(csr)
+                order = "degree"
+            else:
+                perm = None
+                if csr.num_nodes >= 2 * 65536 and os.environ.get(
+                        "GT_BFS_RELABEL", "1") != "0":
+                    with trace.span("gt.setup.depth_probe"):
+                        perm = bfs_order_perm(csr)
+                order = "none" if perm is None else "breadth"
+            out = ((apply_perm(csr, perm), perm) if perm is not None
+                   else (csr, None))
+            trace.count(f"relabel.{order}")
+        return out
+    return derived(csr, "relabeled", build)
 
 
 def component_labels(csr: CsrGraph) -> np.ndarray:
     """(n,) int32 connected-component labels (undirected sense), host
     side, cached per graph (scipy's union-find)."""
-    hit = _comp_cache.get(csr)
-    if hit is not None:
-        return hit
-    from scipy.sparse import csr_matrix
-    from scipy.sparse.csgraph import connected_components
-    with trace.span("gt.setup.components"):
-        n, m = csr.num_nodes, csr.num_edges
-        a = csr_matrix((np.ones(m, np.int8), csr.col_indices,
-                        csr.row_offsets), shape=(n, n))
-        _, comp = connected_components(a, directed=False)
-        comp = comp.astype(np.int32)
-    _comp_cache[csr] = comp
-    return comp
-
-
-_sym_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+    def build():
+        from scipy.sparse import csr_matrix
+        from scipy.sparse.csgraph import connected_components
+        with trace.span("gt.setup.components"):
+            n, m = csr.num_nodes, csr.num_edges
+            a = csr_matrix((np.ones(m, np.int8), csr.col_indices,
+                            csr.row_offsets), shape=(n, n))
+            _, comp = connected_components(a, directed=False)
+            return comp.astype(np.int32)
+    return derived(csr, "components", build)
 
 
 def is_symmetric(csr: CsrGraph) -> bool:
     """True iff the adjacency equals its transpose.  Cached: the
     transpose build is an O(m log m) sort and callers probe this once
     per source."""
-    hit = _sym_cache.get(csr)
-    if hit is not None:
-        return hit
-    with trace.span("gt.setup.symmetry"):
-        csc = csr.transposed()
-        out = (csc.row_offsets.shape == csr.row_offsets.shape
-               and bool(np.array_equal(csc.row_offsets, csr.row_offsets))
-               and bool(np.array_equal(csc.col_indices, csr.col_indices)))
-    _sym_cache[csr] = out
-    return out
+    def build():
+        with trace.span("gt.setup.symmetry"):
+            csc = csr.transposed()
+            return (csc.row_offsets.shape == csr.row_offsets.shape
+                    and bool(np.array_equal(csc.row_offsets,
+                                            csr.row_offsets))
+                    and bool(np.array_equal(csc.col_indices,
+                                            csr.col_indices)))
+    return derived(csr, "symmetric", build)
 
 
 def reach_words_for(csr: CsrGraph, src: int, n_words: int) -> np.ndarray:

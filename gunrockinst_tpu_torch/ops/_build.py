@@ -10,7 +10,8 @@ imported: `load` builds at first use, and `build` starts one `nvcc`
 per missing library, all at once (`load` hands it every missing
 library of `csrc/`).  A build that fails raises with
 nvcc's output.  No source includes PyTorch's headers, so a build takes
-seconds.
+seconds.  `raw_stream` gives a launcher the handle of the stream its
+kernel is queued on.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable, List
+
+import torch
 
 from gunrockinst_tpu_torch.utils import trace
 
@@ -134,3 +137,11 @@ def load(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib
+
+
+def raw_stream(index: int) -> int:
+    """The handle of the current CUDA stream of device `index`."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(index).cuda_stream
+    return raw(index)

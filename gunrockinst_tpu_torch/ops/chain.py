@@ -137,7 +137,7 @@ def chain_reference(offsets: torch.Tensor, in_src: torch.Tensor,
 
 class ChainBfs:
     """Whole searches over one relabeled graph with `planes` label
-    planes.  `g` is the graph's `primitives/bfs_pallas.SearchGraph`;
+    planes.  `g` is the graph's `primitives/search_graph.SearchGraph`;
     the out-edge lists are `g.reverse()`.  `widths` are the vertices
     each level of a search of the graph claimed, where known (None: not
     known); they pick the layout (`layout`).  `map_cap` (bytes, None for

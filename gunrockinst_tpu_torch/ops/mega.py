@@ -85,14 +85,6 @@ def _kernel_fn():
     return fn
 
 
-def _raw_stream(index: int) -> int:
-    """The handle of the current CUDA stream of device `index`."""
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is None:
-        return torch.cuda.current_stream(index).cuda_stream
-    return raw(index)
-
-
 def choose_direction(frontier_edges: int, candidates: int) -> str:
     """The level's order: "push" when the frontier's out-edges are fewer
     than the candidates (reach & ~vw), else "pull" (mega_step.cu's
@@ -350,7 +342,7 @@ class MegaStepper:
                           out_off.data_ptr(), out_dst.data_ptr())
             self._slot_ptrs = (self._slots.data_ptr(),
                                self._hub_tag.data_ptr())
-        stream = _raw_stream(self.device.index)
+        stream = _build.raw_stream(self.device.index)
         # slots rotate: the last launch read slot s - 1 and filled slot s
         # (and cleared the other two)
         s = self._slot

@@ -40,7 +40,6 @@ from typing import Optional
 import torch
 
 from gunrockinst_tpu_torch.ops import _build
-from gunrockinst_tpu_torch.ops.mega import _raw_stream
 from gunrockinst_tpu_torch.ops.value import MIN_LONG_DEGREE, long_lists
 from gunrockinst_tpu_torch.utils import trace
 
@@ -201,7 +200,7 @@ def min_preds(offsets: torch.Tensor, in_src: torch.Tensor,
         *ptrs, n, p.chunk_begin.shape[0], p.multi.shape[0], p.long_degree,
         p.chunk, int(vals.dtype == torch.float32),
         0.0 if const_w is None else float(const_w),
-        _raw_stream(offsets.device.index))
+        _build.raw_stream(offsets.device.index))
     if err != 0:
         raise RuntimeError(f"min_preds launch failed: CUDA error {err}")
     trace.count("launch.min_preds")

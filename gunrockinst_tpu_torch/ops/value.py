@@ -91,7 +91,6 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from gunrockinst_tpu_torch.ops import _build
-from gunrockinst_tpu_torch.ops.mega import _raw_stream
 from gunrockinst_tpu_torch.ops.words import (pack_bitmap, unpack_bitmap,
                                              word_rows)
 from gunrockinst_tpu_torch.utils import trace
@@ -570,7 +569,7 @@ class ValueStepper:
         result = torch.empty(2, dtype=torch.int32, device=ch.device)
         err = _lib().gt_value_stats(
             out_off.data_ptr(), ch.data_ptr(), result.data_ptr(), self.n,
-            self.n_words, _raw_stream(self.device.index))
+            self.n_words, _build.raw_stream(self.device.index))
         if err != 0:
             raise RuntimeError(f"value_step stats launch failed: CUDA "
                                f"error {err}")
@@ -691,7 +690,7 @@ class ValueStepper:
         if self._state is None:
             self._setup()
         scratch, _, ptrs, args, fn, const_w = self._state
-        stream = _raw_stream(self.device.index)
+        stream = _build.raw_stream(self.device.index)
         if out is None:
             out = torch.empty_like(vals)
         if chout is None:

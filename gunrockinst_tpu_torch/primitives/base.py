@@ -12,28 +12,23 @@ from __future__ import annotations
 
 import dataclasses
 import time
-import weakref
 from typing import Union
 
 import numpy as np
 import torch
 
-from gunrockinst_tpu_torch.graph.csr import CsrGraph, DeviceGraph
+from gunrockinst_tpu_torch.graph.csr import CsrGraph, DeviceGraph, derived
 from gunrockinst_tpu_torch.utils import trace
 
 INF32 = np.iinfo(np.int32).max
 
 GraphLike = Union[CsrGraph, DeviceGraph]
 
-_device_graphs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-
-
 def device_graph(graph: GraphLike, device: torch.device,
                  **kw) -> DeviceGraph:
     """`graph` itself when it is a DeviceGraph on `device`; else the
     padded form of the host graph on `device`, built once per graph,
-    device and keywords (`DeviceGraph.build`'s) and cached by identity
-    as the planes routes cache theirs."""
+    device and keywords (`DeviceGraph.build`'s)."""
     if isinstance(graph, DeviceGraph):
         if graph.device != torch.device(device):
             raise ValueError(f"the DeviceGraph lives on {graph.device}, "
@@ -42,12 +37,9 @@ def device_graph(graph: GraphLike, device: torch.device,
     if not isinstance(graph, CsrGraph):
         raise TypeError(f"expected a CsrGraph or a DeviceGraph, got "
                         f"{type(graph).__name__}")
-    key = (torch.device(device), tuple(sorted(kw.items())))
-    per_graph = _device_graphs.setdefault(graph, {})
-    hit = per_graph.get(key)
-    if hit is None:
-        hit = per_graph[key] = DeviceGraph.build(graph, device=device, **kw)
-    return hit
+    return derived(graph, ("device_graph", torch.device(device),
+                           tuple(sorted(kw.items()))),
+                   lambda: DeviceGraph.build(graph, device=device, **kw))
 
 
 @dataclasses.dataclass

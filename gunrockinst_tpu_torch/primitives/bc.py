@@ -38,25 +38,22 @@ reached.
 from __future__ import annotations
 
 import dataclasses
-import weakref
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from gunrockinst_tpu_torch.device import DeviceLike, resolve_device
-from gunrockinst_tpu_torch.graph.csr import CsrGraph, DeviceGraph
+from gunrockinst_tpu_torch.graph.csr import CsrGraph, DeviceGraph, derived
 from gunrockinst_tpu_torch.ops.segment import sum_by_dst, sum_by_src
 from gunrockinst_tpu_torch.ops.words import (host_unpack_words, pack_bitmap,
                                              unpack_bitmap)
 from gunrockinst_tpu_torch.primitives.base import (INF32, GraphLike, Stats,
                                                    Timer, device_graph,
                                                    sync)
-from gunrockinst_tpu_torch.primitives.bfs_pallas import (add_stepper,
-                                                         add_sweep,
-                                                         search_graph)
-
-_planes_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+from gunrockinst_tpu_torch.primitives.search_graph import (add_stepper,
+                                                           add_sweep,
+                                                           search_graph)
 
 INT_MAX = INF32
 
@@ -210,11 +207,7 @@ def get_bc_planes(csr: CsrGraph, device: DeviceLike = None) -> _BcPlanes:
     cached per graph and device: fn(src) -> (delta, sigma, labels,
     depth, device_ms)."""
     dev = resolve_device(device)
-    per_dev = _planes_cache.setdefault(csr, {})
-    hit = per_dev.get(dev)
-    if hit is None:
-        hit = per_dev[dev] = _BcPlanes(csr, dev)
-    return hit
+    return derived(csr, ("bc_planes", dev), lambda: _BcPlanes(csr, dev))
 
 
 @dataclasses.dataclass

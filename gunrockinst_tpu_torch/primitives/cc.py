@@ -17,7 +17,6 @@ the min input id of each weakly connected component:
 from __future__ import annotations
 
 import dataclasses
-import weakref
 from typing import Tuple
 
 import numpy as np
@@ -25,16 +24,14 @@ import torch
 
 from gunrockinst_tpu_torch.device import DeviceLike, resolve_device
 from gunrockinst_tpu_torch.graph.coo import CooGraph
-from gunrockinst_tpu_torch.graph.csr import CsrGraph, DeviceGraph
+from gunrockinst_tpu_torch.graph.csr import CsrGraph, DeviceGraph, derived
 from gunrockinst_tpu_torch.graph.relabel import is_symmetric
 from gunrockinst_tpu_torch.ops.segment import scatter_min
 from gunrockinst_tpu_torch.ops.value import ValueStepper
 from gunrockinst_tpu_torch.ops.words import pack_bitmap
 from gunrockinst_tpu_torch.primitives.base import (GraphLike, Stats, Timer,
                                                    device_graph, sync)
-from gunrockinst_tpu_torch.primitives.bfs_pallas import search_graph
-
-_planes_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+from gunrockinst_tpu_torch.primitives.search_graph import search_graph
 
 
 def cc_kernel(graph: DeviceGraph) -> Tuple[torch.Tensor, int]:
@@ -106,11 +103,7 @@ def get_cc_planes(csr: CsrGraph, device: DeviceLike = None) -> _CcPlanes:
     """Min-label propagation over the value kernel, cached per graph and
     device: fn() -> (comp (n,) int32, rounds, device_ms)."""
     dev = resolve_device(device)
-    per_dev = _planes_cache.setdefault(csr, {})
-    hit = per_dev.get(dev)
-    if hit is None:
-        hit = per_dev[dev] = _CcPlanes(csr, dev)
-    return hit
+    return derived(csr, ("cc_planes", dev), lambda: _CcPlanes(csr, dev))
 
 
 @dataclasses.dataclass

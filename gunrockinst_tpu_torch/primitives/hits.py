@@ -24,22 +24,19 @@ outdeg(u) is [u==src] * delta when u has an out-edge.
 from __future__ import annotations
 
 import dataclasses
-import weakref
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from gunrockinst_tpu_torch.device import DeviceLike, resolve_device
-from gunrockinst_tpu_torch.graph.csr import CsrGraph, DeviceGraph
+from gunrockinst_tpu_torch.graph.csr import CsrGraph, DeviceGraph, derived
 from gunrockinst_tpu_torch.ops.segment import sum_by_dst, sum_by_src
 from gunrockinst_tpu_torch.primitives.base import (GraphLike, Stats, Timer,
                                                    device_graph, sync)
-from gunrockinst_tpu_torch.primitives.bfs_pallas import (add_stepper,
-                                                         add_sweep,
-                                                         search_graph)
-
-_planes_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+from gunrockinst_tpu_torch.primitives.search_graph import (add_stepper,
+                                                           add_sweep,
+                                                           search_graph)
 
 
 def degrees_f32(graph: DeviceGraph) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -114,11 +111,7 @@ def get_hits_planes(csr: CsrGraph, device: DeviceLike = None
     """HITS over the value kernel's add sweeps, cached per graph and
     device: fn(src, delta, max_iter) -> (hub, auth, device_ms)."""
     dev = resolve_device(device)
-    per_dev = _planes_cache.setdefault(csr, {})
-    hit = per_dev.get(dev)
-    if hit is None:
-        hit = per_dev[dev] = _HitsPlanes(csr, dev)
-    return hit
+    return derived(csr, ("hits_planes", dev), lambda: _HitsPlanes(csr, dev))
 
 
 @dataclasses.dataclass

@@ -23,24 +23,21 @@ reference's pull-SpMV route).  All loop on the host.
 from __future__ import annotations
 
 import dataclasses
-import weakref
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from gunrockinst_tpu_torch.device import DeviceLike, resolve_device
-from gunrockinst_tpu_torch.graph.csr import CsrGraph, DeviceGraph
+from gunrockinst_tpu_torch.graph.csr import CsrGraph, DeviceGraph, derived
 from gunrockinst_tpu_torch.ops.segment import sum_by_dst
 from gunrockinst_tpu_torch.ops.spmv import SpmvSweeper
 from gunrockinst_tpu_torch.oracles.ranking import remove_dangling_degrees
 from gunrockinst_tpu_torch.primitives.base import (GraphLike, Stats, Timer,
                                                    device_graph, sync)
-from gunrockinst_tpu_torch.primitives.bfs_pallas import (add_stepper,
-                                                         add_sweep,
-                                                         search_graph)
-
-_planes_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+from gunrockinst_tpu_torch.primitives.search_graph import (add_stepper,
+                                                           add_sweep,
+                                                           search_graph)
 
 
 def effective_degrees(graph: DeviceGraph) -> torch.Tensor:
@@ -168,14 +165,7 @@ def get_pr_planes(csr: CsrGraph, device: DeviceLike = None) -> _PrPlanes:
     device: fn(delta, threshold, src, max_iter) -> (ranks, iterations,
     device_ms)."""
     dev = resolve_device(device)
-    per_dev = _planes_cache.setdefault(csr, {})
-    hit = per_dev.get(dev)
-    if hit is None:
-        hit = per_dev[dev] = _PrPlanes(csr, dev)
-    return hit
-
-
-_spmv_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+    return derived(csr, ("pr_planes", dev), lambda: _PrPlanes(csr, dev))
 
 
 def get_spmv_sweeper(csr: CsrGraph, device: DeviceLike = None
@@ -185,14 +175,13 @@ def get_spmv_sweeper(csr: CsrGraph, device: DeviceLike = None
     device.  It plans nothing and so fits at any size: the reference's
     SMEM budget check has no counterpart on the card."""
     dev = resolve_device(device)
-    per_dev = _spmv_cache.setdefault(csr, {})
-    hit = per_dev.get(dev)
-    if hit is None:
+
+    def build():
         csc = csr.transposed()
-        hit = per_dev[dev] = SpmvSweeper(*(
+        return SpmvSweeper(*(
             torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
             for a in (csc.row_offsets, csc.col_indices)))
-    return hit
+    return derived(csr, ("spmv_sweeper", dev), build)
 
 
 def pr_pallas(csr: CsrGraph, delta: float = 0.85, threshold: float = 0.01,

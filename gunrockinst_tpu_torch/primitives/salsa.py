@@ -22,24 +22,20 @@ kernel (`ops/value.py`) over the forward or the reverse device CSC
 from __future__ import annotations
 
 import dataclasses
-import weakref
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from gunrockinst_tpu_torch.device import DeviceLike, resolve_device
-from gunrockinst_tpu_torch.graph.csr import CsrGraph, DeviceGraph
+from gunrockinst_tpu_torch.graph.csr import CsrGraph, DeviceGraph, derived
 from gunrockinst_tpu_torch.ops.segment import sum_by_dst, sum_by_src
 from gunrockinst_tpu_torch.primitives.base import (GraphLike, Stats, Timer,
                                                    device_graph, sync)
-from gunrockinst_tpu_torch.primitives.bfs_pallas import (add_stepper,
-                                                         add_sweep,
-                                                         search_graph)
+from gunrockinst_tpu_torch.primitives.search_graph import (add_stepper,
+                                                           add_sweep,
+                                                           search_graph)
 from gunrockinst_tpu_torch.primitives.hits import degrees_f32
-
-_planes_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-
 
 def salsa_kernel(graph: DeviceGraph, max_iter: int = 50
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -106,11 +102,7 @@ def get_salsa_planes(csr: CsrGraph, device: DeviceLike = None
     """SALSA over the value kernel's add sweeps, cached per graph and
     device: fn(max_iter) -> (hub, auth, device_ms)."""
     dev = resolve_device(device)
-    per_dev = _planes_cache.setdefault(csr, {})
-    hit = per_dev.get(dev)
-    if hit is None:
-        hit = per_dev[dev] = _SalsaPlanes(csr, dev)
-    return hit
+    return derived(csr, ("salsa_planes", dev), lambda: _SalsaPlanes(csr, dev))
 
 
 @dataclasses.dataclass

@@ -24,14 +24,13 @@ with the least-id tie-break.
 from __future__ import annotations
 
 import dataclasses
-import weakref
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from gunrockinst_tpu_torch.device import DeviceLike, resolve_device
-from gunrockinst_tpu_torch.graph.csr import CsrGraph, DeviceGraph
+from gunrockinst_tpu_torch.device import DeviceLike, download, resolve_device
+from gunrockinst_tpu_torch.graph.csr import CsrGraph, DeviceGraph, derived
 from gunrockinst_tpu_torch.ops import frontier as fr
 from gunrockinst_tpu_torch.ops.advance import expand_frontier
 from gunrockinst_tpu_torch.ops.priority import (near_far_split,
@@ -41,9 +40,7 @@ from gunrockinst_tpu_torch.ops.value import ValueStepper
 from gunrockinst_tpu_torch.primitives.base import (INF32, GraphLike, Stats,
                                                    device_graph, sync,
                                                    warm_search)
-from gunrockinst_tpu_torch.primitives.bfs_pallas import (download,
-                                                         search_graph,
-                                                         upload)
+from gunrockinst_tpu_torch.primitives.search_graph import search_graph
 from gunrockinst_tpu_torch.utils import trace
 
 INT_MAX = INF32
@@ -136,9 +133,6 @@ def sssp_kernel(graph: DeviceGraph, src: int, delta: float,
     with trace.span("gt.entry.preds"):
         return dist, min_preds(graph, dist, src), it
 
-_planes_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-
-
 class _SsspPlanes:
     """fn(src) -> (dist (n,) f32 in input ids, rounds, device_ms);
     `warm_routes` holds "planes" once a call has completed."""
@@ -200,22 +194,16 @@ class _SsspPlanes:
         none and at the source (sssp.py:267-279), over the device CSC
         and weights the sweeps read."""
         with trace.span("gt.entry.preds"):
-            g, st = self.g, self.stepper
-            dist = g.to_internal(upload(dist_np, g.device), float("inf"))
-            preds = g.min_preds(dist, st.weights, st.const_w)
-            preds[src] = -1
-            return preds
+            st = self.stepper
+            return self.g.preds_of(dist_np, src, float("inf"), st.weights,
+                                   st.const_w)
 
 
 def get_sssp_planes(csr: CsrGraph, device: DeviceLike = None) -> _SsspPlanes:
     """Bellman driver over the value kernel, cached per graph and
     device: fn(src) -> (dist (n,) f32, rounds, device_ms)."""
     dev = resolve_device(device)
-    per_dev = _planes_cache.setdefault(csr, {})
-    hit = per_dev.get(dev)
-    if hit is None:
-        hit = per_dev[dev] = _SsspPlanes(csr, dev)
-    return hit
+    return derived(csr, ("sssp_planes", dev), lambda: _SsspPlanes(csr, dev))
 
 
 @dataclasses.dataclass

@@ -33,24 +33,20 @@ from __future__ import annotations
 
 import dataclasses
 import time
-import weakref
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from gunrockinst_tpu_torch.device import DeviceLike, resolve_device
-from gunrockinst_tpu_torch.graph.csr import CsrGraph, DeviceGraph
+from gunrockinst_tpu_torch.graph.csr import CsrGraph, DeviceGraph, derived
 from gunrockinst_tpu_torch.ops.segment import sum_by_dst, sum_by_src
 from gunrockinst_tpu_torch.primitives.base import (GraphLike, Stats,
                                                    device_graph, sync)
-from gunrockinst_tpu_torch.primitives.bfs_pallas import (add_stepper,
-                                                         add_sweep,
-                                                         search_graph)
+from gunrockinst_tpu_torch.primitives.search_graph import (add_stepper,
+                                                           add_sweep,
+                                                           search_graph)
 from gunrockinst_tpu_torch.primitives.pr import get_pr_planes, pr_kernel
-
-_planes_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-
 
 def wtf_salsa_kernel(graph: DeviceGraph, in_cot: torch.Tensor, src: int,
                      alpha: float, salsa_iters: int) -> torch.Tensor:
@@ -140,11 +136,7 @@ def get_wtf_planes(csr: CsrGraph, device: DeviceLike = None) -> _WtfPlanes:
     graph and device: fn(src, alpha, delta, threshold, max_iter,
     cot_size) -> (rank, cot, ppr, device_ms, phases)."""
     dev = resolve_device(device)
-    per_dev = _planes_cache.setdefault(csr, {})
-    hit = per_dev.get(dev)
-    if hit is None:
-        hit = per_dev[dev] = _WtfPlanes(csr, dev)
-    return hit
+    return derived(csr, ("wtf_planes", dev), lambda: _WtfPlanes(csr, dev))
 
 
 @dataclasses.dataclass

@@ -20,7 +20,9 @@ from gunrockinst_tpu_torch.graph.coo import CooGraph
 from gunrockinst_tpu_torch.graph.csr import CsrGraph
 from gunrockinst_tpu_torch.oracles import bc_reference, bc_reference_fast
 from gunrockinst_tpu_torch.ops import value
-from gunrockinst_tpu_torch.primitives import bc, bfs_pallas
+from gunrockinst_tpu_torch.primitives import bc
+from gunrockinst_tpu_torch.primitives.search_graph import (add_stepper,
+                                                           search_graph)
 
 CPU = torch.device("cpu")
 INF32 = np.iinfo(np.int32).max
@@ -39,7 +41,7 @@ def _pair(name, relabel, monkeypatch):
     monkeypatch.setenv("GT_BFS_RELABEL", relabel)
     ref = GRAPHS[name]()
     port = CsrGraph.from_arrays(ref.row_offsets, ref.col_indices)
-    perm = bfs_pallas.search_graph(port, CPU).perm
+    perm = search_graph(port, CPU).perm
     assert (perm is None) == (relabel == "1")
     return ref, port
 
@@ -129,9 +131,9 @@ def test_bc_bitwise_deterministic(monkeypatch, relabel):
 def test_bc_sweeps_are_gated_add_sweeps_on_both_cscs(monkeypatch):
     _, port = _pair("rmat8_directed", "force", monkeypatch)
     fn = bc.get_bc_planes(port, CPU)
-    g = bfs_pallas.search_graph(port, CPU)
-    assert fn.fwd is bfs_pallas.add_stepper(g, gated=True)
-    assert fn.rev is bfs_pallas.add_stepper(g, reverse=True, gated=True)
+    g = search_graph(port, CPU)
+    assert fn.fwd is add_stepper(g, gated=True)
+    assert fn.rev is add_stepper(g, reverse=True, gated=True)
     assert fn.fwd.offsets is g.stepper.offsets
     assert fn.rev.in_src is g.reverse()[1]
     for st in (fn.fwd, fn.rev):

@@ -21,6 +21,7 @@ from gunrockinst_tpu_torch.ops import chain
 from gunrockinst_tpu_torch.ops.words import host_unpack_words
 from gunrockinst_tpu_torch.oracles import bfs_reference
 from gunrockinst_tpu_torch.primitives import bfs, bfs_pallas
+from gunrockinst_tpu_torch.primitives.search_graph import search_graph
 from gunrockinst_tpu_torch.utils import trace
 
 INF32 = np.iinfo(np.int32).max
@@ -74,7 +75,7 @@ def test_chain_matches_reference(monkeypatch, name, src):
     ref, port, ref_chain = _case(name)
     n = port.num_nodes
     planes = (n + 1).bit_length()
-    g = bfs_pallas.search_graph(port, CPU)
+    g = search_graph(port, CPU)
     assert g.perm is None
     got_planes, got_vw, got_depth = chain.ChainBfs(g, planes)(src)
     want_planes, want_vw, want_depth = ref_chain(src)
@@ -101,7 +102,7 @@ def test_chain_reference_stops_at_n_plus_one_levels():
     """max_depth = n + 1 bounds the plain version on any input; a path
     from its end needs n levels, the last one empty."""
     port = _port_of(_path(40))
-    g = bfs_pallas.search_graph(port, CPU)
+    g = search_graph(port, CPU)
     st = g.stepper
     _, vw, depth = chain.chain_reference(st.offsets, st.in_src, 0, 6,
                                          g.rows)
@@ -110,7 +111,7 @@ def test_chain_reference_stops_at_n_plus_one_levels():
 
 
 def test_chain_rejects_bad_arguments():
-    g = bfs_pallas.search_graph(_port_of(_path(10)), CPU)
+    g = search_graph(_port_of(_path(10)), CPU)
     fn = chain.ChainBfs(g, 4)
     for src in (-1, 10):
         with pytest.raises(ValueError):
@@ -160,14 +161,14 @@ def test_layout_rejects_bad_arguments(n_words, limit, widths):
 
 @pytest.mark.parametrize("cap", [-1, True, 1.5, "0"])
 def test_chain_rejects_bad_map_cap(cap):
-    g = bfs_pallas.search_graph(_port_of(_path(10)), CPU)
+    g = search_graph(_port_of(_path(10)), CPU)
     with pytest.raises(ValueError):
         chain.ChainBfs(g, 4, map_cap=cap)
 
 
 @pytest.mark.parametrize("widths", [[-1], [True], [1.5], "9", [2, None]])
 def test_chain_rejects_bad_widths(widths):
-    g = bfs_pallas.search_graph(_port_of(_path(10)), CPU)
+    g = search_graph(_port_of(_path(10)), CPU)
     with pytest.raises(ValueError):
         chain.ChainBfs(g, 4, widths=widths)
 
@@ -175,7 +176,7 @@ def test_chain_rejects_bad_widths(widths):
 def test_chain_map_cap_keeps_the_result():
     """The cap changes where the kernel keeps its visited map, never the
     search: on the CPU both run the plain version, bit for bit."""
-    g = bfs_pallas.search_graph(_port_of(_path(50)), CPU)
+    g = search_graph(_port_of(_path(50)), CPU)
     whole = chain.ChainBfs(g, 6, widths=[1])(7)
     capped = chain.ChainBfs(g, 6, map_cap=0, widths=[1])(7)
     wide = chain.ChainBfs(g, 6)(7)

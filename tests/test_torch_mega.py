@@ -271,15 +271,15 @@ def test_search_graph_shares_one_out_csr():
     """The push's out-CSR is the search graph's `reverse()`: the CSC
     itself for a symmetric graph, one upload of the relabeled CSR for a
     directed one; the chain kernel reads the same tensors."""
-    from gunrockinst_tpu_torch.primitives import bfs_pallas
+    from gunrockinst_tpu_torch.primitives.search_graph import search_graph
     sym = CsrGraph.from_arrays(np.array([0, 1, 3, 4]),
                                np.array([1, 0, 2, 1]))
-    g = bfs_pallas.search_graph(sym, torch.device("cpu"))
+    g = search_graph(sym, torch.device("cpu"))
     out = g.stepper.out_csr()
     assert out[0] is g.stepper.offsets and out[1] is g.stepper.in_src
     directed = CsrGraph.from_arrays(np.array([0, 2, 3, 3]),
                                     np.array([1, 2, 2]))
-    g = bfs_pallas.search_graph(directed, torch.device("cpu"))
+    g = search_graph(directed, torch.device("cpu"))
     out = g.stepper.out_csr()
     assert out[0] is g.reverse()[0] and out[1] is g.reverse()[1]
     np.testing.assert_array_equal(out[0].numpy(), g.csr_p.row_offsets)
@@ -287,7 +287,7 @@ def test_search_graph_shares_one_out_csr():
 
 
 def test_first_candidates_counts_reach_without_source():
-    from gunrockinst_tpu_torch.primitives.bfs_pallas import first_candidates
+    from gunrockinst_tpu_torch.primitives.search_graph import first_candidates
     rows = word_rows(100)
     reach = np.zeros(rows * 128, np.uint32)
     reach[0] = 0b1011

@@ -25,7 +25,9 @@ from gunrockinst_tpu_torch.graph.csr import CsrGraph
 from gunrockinst_tpu_torch.graph.rmat import rmat_graph
 from gunrockinst_tpu_torch.ops import preds as preds_op
 from gunrockinst_tpu_torch.oracles import bfs_reference, sssp_reference
+from gunrockinst_tpu_torch.device import download, upload
 from gunrockinst_tpu_torch.primitives import bfs, bfs_pallas, sssp
+from gunrockinst_tpu_torch.primitives.search_graph import search_graph
 from gunrockinst_tpu_torch.utils import trace
 
 CPU = torch.device("cpu")
@@ -99,7 +101,7 @@ def test_least_input_id_wins_over_least_search_id(monkeypatch):
     src = [0, 0, 1, 2, 2, 2, 2, 2]
     dst = [1, 2, 9, 9, 3, 4, 5, 6]
     csr = _coo_graph(10, src, dst, undirected=True)
-    g = bfs_pallas.search_graph(csr, CPU)
+    g = search_graph(csr, CPU)
     assert g.perm[2] < g.perm[1]
     got = _bfs_preds(csr, 0)
     assert got[9] == 1
@@ -135,7 +137,7 @@ def test_hub_of_many_chunks():
     got = _bfs_preds(csr, root)
     assert got[0] == 1
     np.testing.assert_array_equal(got, bfs_reference(csr, root)[1])
-    g = bfs_pallas.search_graph(csr, CPU)
+    g = search_graph(csr, CPU)
     p = preds_op.plan(g.stepper.offsets, g._perm, chunk=64)
     hub = int(g.internal(0))
     i = int(np.nonzero(p.long_v.numpy() == hub)[0][0])
@@ -176,7 +178,7 @@ def test_plan_tiles_every_long_in_list_once(long_degree, chunk):
 
 def test_wrapper_rejects_bad_inputs():
     csr = _random(100, 600, 2, False, "unit")
-    g = bfs_pallas.search_graph(csr, CPU)
+    g = search_graph(csr, CPU)
     st = g.stepper
     p = preds_op.plan(st.offsets)
     n, m = st.n, st.in_src.shape[0]
@@ -254,7 +256,7 @@ PLANS = [{}, {"chunk": 32}, {"long_degree": 64, "chunk": 1000}]
 @pytest.mark.parametrize("kind", ["bfs", "sssp_w", "sssp_c"])
 def test_kernel_matches_plain_bitwise(card, card_graphs, name, kind):
     csr = card_graphs[name]
-    g = bfs_pallas.search_graph(csr, card)
+    g = search_graph(csr, card)
     st = g.stepper
     src = int(np.argsort(-csr.degrees, kind="stable")[3])
     weights, const_w = None, None
@@ -309,7 +311,7 @@ def test_one_launch_per_call_that_marks_preds(card, card_graphs, kind):
 def test_download_and_upload_count_and_keep_values():
     x = np.arange(1000, dtype=np.int32) * 3 - 7
     trace.reset_totals()
-    back = bfs_pallas.download(bfs_pallas.upload(x, torch.device("cpu")))
+    back = download(upload(x, torch.device("cpu")))
     totals = trace.totals()
     assert np.array_equal(back, x) and back.dtype == np.int32
     assert totals["copy.h2d_bytes"] == totals["copy.d2h_bytes"] == x.nbytes
@@ -320,11 +322,11 @@ def test_download_and_upload_count_and_keep_values():
 def test_pinned_copies_are_the_callers_own(card):
     a = np.arange(1 << 20, dtype=np.int32)
     b = a[::-1].copy()
-    on_card = bfs_pallas.upload(a, card)
+    on_card = upload(a, card)
     assert on_card.device.type == "cuda"
-    first = bfs_pallas.download(on_card)
-    second = bfs_pallas.download(bfs_pallas.upload(b, card))
+    first = download(on_card)
+    second = download(upload(b, card))
     assert np.array_equal(first, a) and np.array_equal(second, b)
     assert first.flags.writeable and first.ctypes.data != second.ctypes.data
     first[0] = -5
-    assert bfs_pallas.download(bfs_pallas.upload(b, card))[0] == b[0]
+    assert download(upload(b, card))[0] == b[0]

@@ -27,7 +27,10 @@ from gunrockinst_tpu.primitives import wtf as ref_wtf
 from gunrockinst_tpu_torch.graph.csr import CsrGraph
 from gunrockinst_tpu_torch.oracles import (hits_reference, salsa_reference,
                                            wtf_reference)
-from gunrockinst_tpu_torch.primitives import bfs_pallas, hits, salsa, wtf
+from gunrockinst_tpu_torch.primitives import hits, salsa, wtf
+from gunrockinst_tpu_torch.primitives.search_graph import (add_stepper,
+                                                           add_sweep,
+                                                           search_graph)
 
 REPO = Path(__file__).resolve().parent.parent
 CPU = torch.device("cpu")
@@ -50,7 +53,7 @@ def _pair(name, relabel, monkeypatch):
     monkeypatch.setenv("GT_BFS_RELABEL", relabel)
     ref = GRAPHS[name]()
     port = CsrGraph.from_arrays(ref.row_offsets, ref.col_indices)
-    perm = bfs_pallas.search_graph(port, CPU).perm
+    perm = search_graph(port, CPU).perm
     assert (perm is None) == (relabel == "1")
     return ref, port
 
@@ -129,7 +132,7 @@ def test_relabeled_ids_do_not_show(monkeypatch):
     """Forced relabeling of a fresh directed graph: every result is in
     input ids (the reverse sweeps share the forward sweep's ids)."""
     ref, port = _pair("rmat8_directed", "force", monkeypatch)
-    assert not np.array_equal(bfs_pallas.search_graph(port, CPU).perm,
+    assert not np.array_equal(search_graph(port, CPU).perm,
                               np.arange(port.num_nodes))
     got = hits.run(port, src=7, max_iter=6, mode="planes", device="cpu")
     hub, auth = ref_hits_oracle(ref, 7, max_iter=6)
@@ -151,28 +154,28 @@ def test_reverse_csc_shares_or_uploads(monkeypatch, relabel):
     the forward CSC's tensors.  A directed graph uploads its relabeled
     CSR once, as the CSC of the reverse graph in the same ids."""
     _, und = _pair("rmat8_undirected", relabel, monkeypatch)
-    g = bfs_pallas.search_graph(und, CPU)
+    g = search_graph(und, CPU)
     assert g.reverse()[1] is g.stepper.in_src
     for gated in (False, True):
-        fwd = bfs_pallas.add_stepper(g, gated=gated)
-        rev = bfs_pallas.add_stepper(g, reverse=True, gated=gated)
+        fwd = add_stepper(g, gated=gated)
+        rev = add_stepper(g, reverse=True, gated=gated)
         assert fwd is not rev and fwd.use_active == rev.use_active == gated
         assert rev.in_src.data_ptr() == fwd.in_src.data_ptr()
         assert rev.offsets.data_ptr() == fwd.offsets.data_ptr()
-        assert bfs_pallas.add_stepper(g, True, gated) is rev
+        assert add_stepper(g, True, gated) is rev
     _, dig = _pair("rmat8_directed", relabel, monkeypatch)
-    g = bfs_pallas.search_graph(dig, CPU)
+    g = search_graph(dig, CPU)
     offsets, in_src = g.reverse()
     assert g.reverse()[1] is in_src
     assert in_src.data_ptr() != g.stepper.in_src.data_ptr()
     np.testing.assert_array_equal(offsets.numpy(), g.csr_p.row_offsets)
     np.testing.assert_array_equal(in_src.numpy(), g.csr_p.col_indices)
-    rev = bfs_pallas.add_stepper(g, reverse=True)
+    rev = add_stepper(g, reverse=True)
     assert rev.in_src is in_src
     # the reverse sweep sums over out-edges, in search ids
     x = torch.arange(g.n_words * 32, dtype=torch.float32) % 7
     x[g.n:] = 0
-    got = bfs_pallas.add_sweep(rev, x)[: g.n].numpy()
+    got = add_sweep(rev, x)[: g.n].numpy()
     esrc = np.repeat(np.arange(g.n), np.diff(g.csr_p.row_offsets))
     want = np.bincount(esrc, weights=x.numpy()[g.csr_p.col_indices],
                        minlength=g.n)
@@ -183,9 +186,9 @@ def test_rank_paths_share_the_add_steppers():
     ref = ref_rmat(8, 4, undirected=False, seed=3)
     port = CsrGraph.from_arrays(ref.row_offsets, ref.col_indices)
     from gunrockinst_tpu_torch.primitives import pr
-    g = bfs_pallas.search_graph(port, CPU)
-    fwd = bfs_pallas.add_stepper(g)
-    rev = bfs_pallas.add_stepper(g, reverse=True)
+    g = search_graph(port, CPU)
+    fwd = add_stepper(g)
+    rev = add_stepper(g, reverse=True)
     assert pr.get_pr_planes(port, CPU).stepper is fwd
     for fn in (hits.get_hits_planes(port, CPU),
                salsa.get_salsa_planes(port, CPU),

@@ -34,7 +34,8 @@ from gunrockinst_tpu_torch.graph.csr import CsrGraph, DeviceGraph
 from gunrockinst_tpu_torch.ops import preds as preds_op
 from gunrockinst_tpu_torch.ops.mega import MegaStepper
 from gunrockinst_tpu_torch.oracles import bfs_reference, sssp_reference
-from gunrockinst_tpu_torch.primitives import bfs, bfs_pallas, sssp
+from gunrockinst_tpu_torch.primitives import bfs, sssp
+from gunrockinst_tpu_torch.primitives.search_graph import search_graph
 
 CPU = torch.device("cpu")
 
@@ -132,7 +133,7 @@ def test_auto_keeps_the_kernel_route(monkeypatch, scale, undirected):
 def test_min_preds_keeps_no_edge_copy(monkeypatch):
     ref = ref_rmat(10, 6, undirected=False, seed=4)
     port = CsrGraph.from_arrays(ref.row_offsets, ref.col_indices)
-    g = bfs_pallas.search_graph(port, CPU)
+    g = search_graph(port, CPU)
     labels, preds = bfs_reference(port, 3)
 
     def no_edge_dst(self):

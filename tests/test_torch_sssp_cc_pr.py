@@ -21,7 +21,8 @@ from gunrockinst_tpu_torch.graph.csr import CsrGraph
 from gunrockinst_tpu_torch.oracles import (cc_reference,
                                            pagerank_reference,
                                            sssp_reference)
-from gunrockinst_tpu_torch.primitives import bfs_pallas, cc, pr, sssp
+from gunrockinst_tpu_torch.primitives import cc, pr, sssp
+from gunrockinst_tpu_torch.primitives.search_graph import search_graph
 
 
 def _random(n, m, seed, undirected):
@@ -69,7 +70,7 @@ def test_sssp_matches_reference(monkeypatch, relabel, name, src):
     dist, preds = sssp_reference(port, src)
     np.testing.assert_array_equal(got.dist, dist)
     np.testing.assert_array_equal(got.preds, preds)
-    perm = bfs_pallas.search_graph(port, torch.device("cpu")).perm
+    perm = search_graph(port, torch.device("cpu")).perm
     assert (perm is None) == (relabel == "1")
 
 
@@ -130,7 +131,7 @@ def test_value_paths_share_the_device_csc():
     ref = ref_rmat(8, 4, undirected=True, seed=2)
     port = CsrGraph.from_arrays(ref.row_offsets, ref.col_indices)
     dev = torch.device("cpu")
-    g = bfs_pallas.search_graph(port, dev)
+    g = search_graph(port, dev)
     for st in (sssp.get_sssp_planes(port, dev).stepper,
                cc.get_cc_planes(port, dev).stepper,
                pr.get_pr_planes(port, dev).stepper):

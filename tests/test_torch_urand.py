@@ -107,8 +107,8 @@ def test_bfs_matches_the_reference_bit_for_bit(searched):
 
 
 def test_unrelabeled_with_probe_span_and_order_count(searched):
-    from gunrockinst_tpu_torch.primitives import bfs_pallas
-    g = bfs_pallas.search_graph(searched["csr"], torch.device("cpu"))
+    from gunrockinst_tpu_torch.primitives.search_graph import search_graph
+    g = search_graph(searched["csr"], torch.device("cpu"))
     assert g.perm is None and g.csr_p is searched["csr"]
     totals = searched["totals"]
     assert totals.get("relabel.none") == 1
