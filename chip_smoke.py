@@ -13,10 +13,10 @@
 Phases, each of which raises on failure:
 
   1. device  - the card's name and power limit (nvidia-smi);
-  2. build   - compile the four kernel sources (mega_step, value_step,
-               chain_bfs, touch_sweep; the spmv wrapper launches
-               value_step's) from gunrockinst_tpu_torch/csrc/ (one nvcc
-               per source, all started together, into
+  2. build   - compile the five kernel sources (mega_step, value_step,
+               chain_bfs, touch_sweep, min_preds; the spmv wrapper
+               launches value_step's) from gunrockinst_tpu_torch/csrc/
+               (one nvcc per source, all started together, into
                gunrockinst_tpu_torch/_build/);
   3. kernel  - at rmat-s14 and rmat-s20 (ef16, undirected, seed 42), for
                every level of one search from the top-degree vertex and
@@ -45,7 +45,8 @@ Phases, each of which raises on failure:
                labels and preds equal the NumPy oracle exactly; the
                preds again, as the port's earlier `SearchGraph.min_preds`
                made them (an int64 destination per edge, cached) and as
-               they are made now, both equal to the oracle, with the
+               the call made them (decoded from its planes), both
+               equal to the oracle, with the
                card memory each took (peak above the call's start, and
                held after it, from torch.cuda.max_memory_allocated);
   5. multi   - get_fused_bfs_multi(csr, reps=64) at rmat-s20 over the 64
@@ -89,6 +90,16 @@ Phases, each of which raises on failure:
                (`replay_routes`): every route's bits equal the dense
                route's, and each round is timed per route beside the
                route the run took;
+ 7b. preds   - the min-id preds kernel against its plain version and
+               the chain it replaced, bit for bit, at rmat-s20 for phase
+               4's labels and phase 7's distances, timed at each chunk
+               plan; the decode kernel (`plane_labels`) of the planes
+               of a step-8 and of a chain search from phase 4's source
+               against its plain version and the oracle's labels, timed
+               beside its byte bound; the preds kernel timed on the same
+               labels decoded, uploaded, and decoded with L2 written
+               over; one preds launch per bfs.run/sssp.run that marks
+               preds, one decode launch per such bfs.run, none without;
   8. cc      - cc.run(csr, mode="planes") at rmat-s20: component ids equal
                the minimum vertex id of each scipy component; its rounds
                replayed through every route as in phase 7;
@@ -116,6 +127,8 @@ Phases, each of which raises on failure:
                from argmax(degrees): route "chain", labels and preds
                equal the NumPy oracle; one more call once went_deep is
                set takes exactly one chain launch and no warm-up search;
+               the decode of that call's planes equals its plain
+               version and the oracle's labels, timed as in phase 7b;
  12. touch   - the touched sweep and its fused form (& ~vw) equal the
                plain version at every level of a top-degree and a random
                search at rmat-s14 and rmat-s20 (no relabeling), at every
@@ -265,9 +278,10 @@ and with them the card's tally of the value kernel's launches per route
 (`value.route_launches`, printed per path for phases 7-9 and 15-18; the
 sum must equal the launches, and sssp, sssp weighted, cc and both bc
 paths must have pushed or touched at least once);
-the chain kernel's around phase 11's bfs.run, the touched sweep's
-around each entry-point call of phase 13, the pull-SpMV's around phase
-15's pr.run calls, and the value kernel's again around each
+the preds kernel's and the decode's around each entry-point call of
+phase 7b, the chain kernel's around phase 11's bfs.run, the touched
+sweep's around each entry-point call of phase 13, the pull-SpMV's
+around phase 15's pr.run calls, and the value kernel's again around each
 entry-point call of phases 16-18, and every count around each CLI
 subcommand of phase 29.  Phases 3, 6, 10, 12 and 14, which
 hold kernels against their plain versions and time them, count for no
@@ -359,7 +373,7 @@ if __name__ == "__main__" and sys.argv[1:2] == ["--variants"]:
 import numpy as np
 import torch
 
-from gunrockinst_tpu_torch.device import resolve_device
+from gunrockinst_tpu_torch.device import resolve_device, upload
 from gunrockinst_tpu_torch.graph.coo import CooGraph
 from gunrockinst_tpu_torch.graph.csr import CsrGraph
 from gunrockinst_tpu_torch.graph.lattice import grid_graph
@@ -410,6 +424,12 @@ KERNELS = {   # every kernel of the BFS and value-plane paths
     # the min-id preds of BFS and SSSP: the JAX package's are XLA's
     # scatter-min, so no TPU kernel stands behind it
     "min_preds": dict(
+        route="cuda", source="gunrockinst_tpu_torch/csrc/min_preds.cu",
+        replaces=None),
+    # the decode of a search's label planes into the labels the preds
+    # kernel reads: the JAX package assembles its labels on the host, so
+    # no TPU kernel stands behind it
+    "plane_labels": dict(
         route="cuda", source="gunrockinst_tpu_torch/csrc/min_preds.cu",
         replaces=None),
 }
@@ -1397,15 +1417,70 @@ def preds_work(st, vals, weights):
     return per_edge * edges + 4 * (n + 1) + 12 * n, edges
 
 
+def decode_work(n_words, n_bits):
+    """Bytes the decode must move: the planes it reads and the visited
+    words (4 B a word each), and the labels it writes (4 B a vertex)."""
+    return 4 * n_words * (n_bits + 1) + 4 * 32 * n_words
+
+
+def decode_row(g, planes, vw, depth, psrc, want, label, card):
+    """The decode kernel (`preds_op.plane_labels`) of one search's label
+    planes and visited words against its plain version, bit for bit,
+    and both against `want` (the oracle's labels in search ids); timed
+    (CUDA events, median) beside its byte bound and the plain
+    version."""
+    from gunrockinst_tpu_torch.ops import preds as preds_op
+    n_planes = planes.shape[0] // g.rows
+    n_bits = min(max(depth, 1).bit_length(), n_planes)
+    call = lambda: preds_op.plane_labels(planes, vw, g.n, depth, psrc)
+    got = call()
+    plain = preds_op.plane_labels_reference(planes, vw, g.n, n_bits, psrc)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, plain) and torch.equal(got, want)):
+        raise AssertionError(f"{label}: the decode kernel differs from its "
+                             "plain version or the oracle's labels")
+    nbytes = decode_work(g.n_words, n_bits)
+    row = dict(name=label, depth=depth, planes_read=n_bits,
+               ms=event_ms(call, lambda: None, 21),
+               plain_ms=event_ms(lambda: preds_op.plane_labels_reference(
+                   planes, vw, g.n, n_bits, psrc), lambda: None, 5),
+               bound_ms=bound_ms(nbytes, 0), bytes=nbytes)
+    print(f"  decode, {label}: kernel = plain version = oracle, bit for "
+          f"bit; depth {depth}, {n_bits} of {n_planes} planes read; kernel"
+          f" {row['ms']:.4f} ms (bound {row['bound_ms']:.4f}), plain "
+          f"{row['plain_ms']:.3f} [{card}]", flush=True)
+    return row
+
+
+def preds_fed_ms(g, st, p, feeds):
+    """The preds kernel's ms (CUDA events, median of 21) on the same BFS
+    labels fed each way of `feeds` ({name: a call that returns them}),
+    the feed run just before each kernel call, outside its events."""
+    from gunrockinst_tpu_torch.ops import preds as preds_op
+    box, out = {}, {}
+    for name, feed in feeds.items():
+        out[name] = event_ms(
+            lambda: preds_op.min_preds(st.offsets, st.in_src, box["v"], p),
+            lambda: box.update(v=feed()), 21)
+    return out
+
+
 def preds_phase(csr20, planes, src, ref_labels, ref_preds, dev, card,
                 counts):
     """Phase 7b: the min-id preds kernel against its plain version at
     rmat-s20, bit for bit, for BFS labels (phase 4's) and SSSP distances
     (phase 7's, per-edge weights 1..63 and the constant 1), timed beside
     its byte bound, the plain version and the chain it replaced
-    (`library_ms`), at every chunk plan of PREDS_PLANS; then one launch
-    per `bfs.run`/`sssp.run` that marks preds and none for one that does
-    not, into `counts`.  Returns the kernels line's row."""
+    (`library_ms`), at every chunk plan of PREDS_PLANS.  The decode
+    kernel (`plane_labels`) on the planes of a step-8 and of a chain
+    search from `src`, as the mega branch leaves them, against its plain
+    version and the oracle (`decode_row`); the preds kernel on the same
+    labels fed three ways: decoded, uploaded and scattered as the path
+    did before, and decoded with L2 then written over.  Then one preds
+    launch per `bfs.run`/`sssp.run` that marks preds and none for one
+    that does not, into `counts`, and one decode launch per `bfs.run`
+    that marks preds, none otherwise.  Returns the kernels line's rows
+    of the preds kernel and of the decode."""
     from gunrockinst_tpu_torch.ops import preds as preds_op
     t0 = phase("7b min-id preds kernel vs plain version, rmat-s20")
     wcsr, wdist, _ = planes["weights 1..63"]
@@ -1464,31 +1539,58 @@ def preds_phase(csr20, planes, src, ref_labels, ref_preds, dev, card,
               f"chain {row['library_ms']:.3f}; by long_degree/chunk "
               f"{ {k: round(v, 4) for k, v in by_plan.items()} } [{card}]",
               flush=True)
+    psrc = g.internal(src)
+    searches = {"step8": g.search(psrc, g.reach(psrc), 8, 255)[:3]}
+    chain_planes, chain_vw, chain_depth = chain.ChainBfs(
+        g, max((g.n + 1).bit_length(), 1))(psrc)
+    searches["chain"] = (chain_planes, chain_vw, int(chain_depth.item()))
+    decode_rows = [decode_row(g, *searches[route], psrc, cases["bfs"][1],
+                              f"rmat-s20 {route}", card)
+                   for route in ("step8", "chain")]
+    step_planes, step_vw, step_depth = searches["step8"]
+    decoded = lambda: preds_op.plane_labels(step_planes, step_vw, g.n,
+                                            step_depth, psrc)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    fed = preds_fed_ms(g, g.stepper, preds_op.plan(g.stepper.offsets,
+                                                   g._perm), {
+        "decoded": decoded,
+        "uploaded": lambda: g.to_internal(upload(ref_labels, dev), INF32),
+        "decoded, L2 written over": lambda: (decoded(), flush.fill_(1))[0]})
+    del flush
+    print(f"  preds kernel on phase 4's labels by how they were fed: "
+          f"{ {k: round(v, 4) for k, v in fed.items()} } ms [{card}]",
+          flush=True)
     paths = {
         "bfs.run auto": lambda mark: bfs.run(csr20, src,
                                              traversal_mode="auto",
                                              mark_preds=mark).preds,
         "sssp.run planes": lambda mark: sssp.run(wcsr, src, mode="planes",
                                                  mark_preds=mark).preds}
+    decodes = {}
     for path, run in paths.items():
-        zero_launches("min_preds")
+        zero_launches("min_preds", "plane_labels")
         run(False)
-        if launches_of("min_preds") != 0:
+        if launches_of("min_preds") != 0 or launches_of("plane_labels"):
             raise AssertionError(f"{path} without preds launched the preds "
-                                 "kernel")
+                                 "kernel or the decode")
         got = run(True)
         counts[path] = launches_of("min_preds")
+        decodes[path] = launches_of("plane_labels")
         if counts[path] != 1:
             raise AssertionError(f"{path}: {counts[path]} preds launches, "
                                  "not 1")
+        if decodes[path] != int(path == "bfs.run auto"):
+            raise AssertionError(f"{path}: {decodes[path]} decode "
+                                 "launches")
         want = ref_preds if path == "bfs.run auto" else outs["sssp_w"]
         if not np.array_equal(got, want):
             raise AssertionError(f"{path}: preds differ from the kernel's "
                                  "above")
-    print(f"  launch.min_preds per call with preds {counts}, 0 without "
-          f"[{card}]", flush=True)
+    print(f"  launch.min_preds per call with preds {counts}, 0 without; "
+          f"launch.plane_labels {decodes}, 0 without [{card}]", flush=True)
     done(t0)
     bfs_row = rows[0]
+    step_row = decode_rows[0]
     return dict(
         name="min_preds", **KERNELS["min_preds"],
         launches=sum(counts.values()), max_abs_err=0, ms=bfs_row["ms"],
@@ -1497,7 +1599,15 @@ def preds_phase(csr20, planes, src, ref_labels, ref_preds, dev, card,
         matches_plain=True,
         work="the preds of phase 4's rmat-s20 BFS; configs lists SSSP's "
              "too",
-        configs=rows, launches_by_path=counts)
+        configs=rows, launches_by_path=counts, ms_by_feed=fed), dict(
+        name="plane_labels", **KERNELS["plane_labels"],
+        launches=sum(decodes.values()), max_abs_err=0, ms=step_row["ms"],
+        plain_ms=step_row["plain_ms"], bound_ms=step_row["bound_ms"],
+        bound_by="bytes", library_ms=None, matches_plain=True,
+        work="the labels of a rmat-s20 step-8 search from phase 4's "
+             "source; configs lists its chain search's and phase 11's",
+        configs=decode_rows,
+        launches_by_path={k: v for k, v in decodes.items() if v})
 
 
 def cc_phase(csr20, dev, card, counts, routes, replays):
@@ -1696,7 +1806,8 @@ def chain_path(csr, dev, card, counts):
     exact against the oracle; the chain kernel's launches of the call
     (its warm-up search's among them: the graph's first call) go into
     `counts`, then one more call must take exactly one and no
-    warm-up."""
+    warm-up.  Returns the decode's row (`decode_row`) of that call's
+    own planes."""
     t0 = phase("11 bfs.run auto, grid-1024^2")
     src = int(np.argmax(csr.degrees))
     zero_launches("chain_bfs")
@@ -1734,7 +1845,13 @@ def chain_path(csr, dev, card, counts):
         raise AssertionError("grid bfs.run labels differ from the oracle")
     if not np.array_equal(res.preds, ref_preds):
         raise AssertionError("grid bfs.run preds differ from the oracle")
+    g = fn.g
+    planes, vw, depth, psrc, _ = fn._last
+    row = decode_row(g, planes, vw, depth, psrc, g.to_internal(
+        torch.from_numpy(ref_labels).to(dev), INF32), "grid-1024^2 chain",
+        card)
     done(t0, "labels and preds exact; one chain launch per search")
+    return row
 
 
 def compare_touch(sw, fw, vw, label):
@@ -2489,8 +2606,9 @@ def old_min_preds(g, labels_np, src, held):
 
 
 def preds_memory_line(csr20, src, labels, want, card):
-    """Phase 4's preds, as they were made before and as they are now:
-    both equal the oracle's; the card memory each took."""
+    """Phase 4's preds, as they were made before and as they are now
+    (the main path's own: the decode of phase 4's planes, then the
+    kernel): both equal the oracle's; the card memory each took."""
     dev = resolve_device(None)
     g = search_graph(csr20, dev)
     held = []
@@ -2498,7 +2616,7 @@ def preds_memory_line(csr20, src, labels, want, card):
         lambda: old_min_preds(g, labels, src, held))
     held.clear()
     new, new_peak, new_held = preds_memory(
-        lambda: bfs_pallas._preds(csr20, dev, labels, src))
+        bfs_pallas.get_fused_bfs(csr20, True, dev).preds)
     for what, p in (("the earlier preds", old), ("preds", new)):
         if not np.array_equal(p, want):
             raise AssertionError(f"{what} differ from the oracle")
@@ -3632,9 +3750,11 @@ def main() -> int:
     sssp_planes = sssp_phase(csr20, csr14, dev, card, by_path, by_route,
                              replays)
     preds_counts = {}
-    preds_row = preds_phase(csr20, sssp_planes, src, ref_labels, ref_preds,
-                            dev, card, preds_counts)
+    preds_row, decode_kernel_row = preds_phase(
+        csr20, sssp_planes, src, ref_labels, ref_preds, dev, card,
+        preds_counts)
     launches["min_preds"] = sum(preds_counts.values())
+    launches["plane_labels"] = decode_kernel_row["launches"]
     cc_phase(csr20, dev, card, by_path, by_route, replays)
     planes_ranks, pr_ref = pr_phase(csr20, card, by_path, by_route)
     # ---- end of the value-plane paths (more in phases 16-18) ---------
@@ -3642,7 +3762,8 @@ def main() -> int:
     chain_err, chain_row, csr1024 = chain_phase(csr14, dev, card)
     # ---- the deep BFS path: its own count window ---------------------
     chain_counts = {}
-    chain_path(csr1024, dev, card, chain_counts)
+    decode_kernel_row["configs"].append(
+        chain_path(csr1024, dev, card, chain_counts))
     launches["chain_bfs"] = sum(chain_counts.values())
     # ---- end of the deep BFS path ------------------------------------
     touch_err, touch_row = touch_phase(csrs, dev, card)
@@ -3796,6 +3917,7 @@ def main() -> int:
         launches_by_path=spmv_counts,
         launches_by_route={"pr pallas": by_route["pr pallas"]}))
     line.append(preds_row)
+    line.append(decode_kernel_row)
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(card, flush=True)

@@ -45,6 +45,16 @@
 //     per vertex of several chunks, combines them and writes its result.
 // Integer min is order-free, so every run gives the same bits.  An id is
 // gathered only for an edge that passes the test.
+//
+// A second entry, gt_plane_labels, gives the BFS pass its labels where the
+// search left them: it decodes a search's label planes and visited words
+// (search ids, on the card) into the int32 labels the pass reads, so that
+// the host's labels need not be uploaded again.  Bytes bound it too: one
+// read of the planes it decodes and of the visited words (4 B a word
+// each), one write of 4 B a vertex: at 2^21 vertices and 3 planes about
+// 3 us at 3.35 TB/s.  One thread a vertex: the 32 lanes of a warp share
+// one word, so each plane word is one broadcast load and the warp's
+// labels one coalesced 128 B store.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -262,6 +272,32 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// out[v] for every v < 32 * n_words: bits 0 .. n_bits-1 of the label
+// from planes 0 .. n_bits-1 (plane b is the n_words words at b * n_words)
+// where v < n and its visited bit is set, else kInf32; 0 at psrc.  Planes
+// at and above n_bits are not read: they may hold anything.
+__global__ void __launch_bounds__(kThreads)
+plane_labels_kernel(const uint32_t* __restrict__ planes,
+                    const uint32_t* __restrict__ vw, int32_t* __restrict__ out,
+                    int n, int n_words, int n_bits, int psrc) {
+  const long long v =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (v >= static_cast<long long>(n_words) * 32) return;
+  const int w = static_cast<int>(v >> 5);
+  const int bit = static_cast<int>(v & 31);
+  int32_t label = kInf32;
+  if (v < n && ((__ldg(vw + w) >> bit) & 1u)) {
+    uint32_t lv = 0u;
+    for (int b = 0; b < n_bits; ++b) {
+      lv |= ((__ldg(planes + static_cast<size_t>(b) * n_words + w) >> bit) &
+             1u) << b;
+    }
+    label = static_cast<int32_t>(lv);
+  }
+  if (v == psrc) label = 0;
+  out[v] = label;
+}
+
 }  // namespace
 
 // Writes out[input_id[v]] for every v < n on `stream` (two launches at
@@ -302,4 +338,28 @@ extern "C" int gt_min_preds(const void* offsets, const void* in_src,
   a.const_w = const_w;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(f32 ? launch<Dists>(a, s) : launch<Labels>(a, s));
+}
+
+// Writes the (32 * n_words,) int32 labels `out` of a search's label planes
+// (n_bits planes of n_words words each, read) and visited words (n_words)
+// on `stream` (one launch; nothing is synchronised): see
+// plane_labels_kernel.  Returns the cudaError_t of the launch (0 on
+// success).
+extern "C" int gt_plane_labels(const void* planes, const void* vw, void* out,
+                               int n, int n_words, int n_bits, int psrc,
+                               void* stream) {
+  if (n < 0 || n_words < 0 || static_cast<long long>(n) > 32LL * n_words ||
+      n_bits < 0 || n_bits > 31 || psrc < 0 || psrc >= n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long threads = 32LL * n_words;
+  if (threads > 0) {
+    plane_labels_kernel<<<static_cast<unsigned>((threads + kThreads - 1) /
+                                                kThreads),
+                          kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(planes),
+        static_cast<const uint32_t*>(vw), static_cast<int32_t*>(out), n,
+        n_words, n_bits, psrc);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -26,9 +26,15 @@ in chunks of at most `chunk` ids, one warp each, combined per vertex by
 a second kernel.  The chunk plan (`value.long_lists`) and `input_id`
 are built once per graph (`plan`).
 
-The wrapper launches the kernel for CUDA tensors and takes the plain
+The BFS labels can come from where the search left them: `plane_labels`
+decodes a search's label planes and visited words, in search ids on the
+device, into the int32 labels the pass reads (the second entry of
+`csrc/min_preds.cu`), so that the host's labels are not uploaded again.
+
+Each wrapper launches its kernel for CUDA tensors and takes the plain
 version only for CPU tensors; it raises on a refused launch, and counts
-each pass as `launch.min_preds` (`utils/trace.py`).
+each launch as `launch.min_preds` or `launch.plane_labels`
+(`utils/trace.py`).
 """
 
 from __future__ import annotations
@@ -53,6 +59,15 @@ def _kernel_fn():
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ptr] * 13 + [i32] * 6 + [ctypes.c_float, ptr]
+        fn.restype = i32
+    return fn
+
+
+def _labels_fn():
+    fn = _build.load("min_preds").gt_plane_labels
+    if fn.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
         fn.restype = i32
     return fn
 
@@ -204,4 +219,61 @@ def min_preds(offsets: torch.Tensor, in_src: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"min_preds launch failed: CUDA error {err}")
     trace.count("launch.min_preds")
+    return out
+
+
+def plane_labels_reference(planes: torch.Tensor, vw: torch.Tensor, n: int,
+                           n_bits: int, psrc: int) -> torch.Tensor:
+    """Plain PyTorch version of `plane_labels`, with `n_bits` the planes
+    read."""
+    n_words = vw.numel()
+    shifts = torch.arange(32, dtype=torch.int32, device=vw.device)
+
+    def bits(words):
+        return ((words.reshape(-1, 1) >> shifts) & 1).reshape(-1)
+
+    planes = planes.reshape(-1, n_words)
+    labels = torch.zeros(n_words * 32, dtype=torch.int32, device=vw.device)
+    for b in range(n_bits):
+        labels |= bits(planes[b]) << b
+    labels[bits(vw) == 0] = INF32
+    labels[n:] = INF32
+    labels[psrc] = 0
+    return labels
+
+
+def plane_labels(planes: torch.Tensor, vw: torch.Tensor, n: int, depth: int,
+                 psrc: int) -> torch.Tensor:
+    """(32 * n_words,) int32 BFS labels in search ids, the values
+    `min_preds` takes, from a search of `depth` levels from `psrc`: its
+    label planes `planes` (P*rows, 128), plane b holding bit b of each
+    visited vertex's level, and its visited words `vw` (rows, 128).  Only
+    the planes a level below `depth` can set are read, the first
+    bit_length(max(depth, 1)) of the P (the rest may hold anything);
+    INF32 where the visited bit is clear and at n and above; 0 at psrc.
+    The kernel on CUDA tensors, the plain version on CPU tensors."""
+    dev = vw.device
+    for name, t in (("planes", planes), ("vw", vw)):
+        if (t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != 128
+                or not t.is_contiguous() or t.device != dev):
+            raise ValueError(f"{name} must be a contiguous (k, 128) int32 "
+                             f"tensor on {dev}")
+    n_words = vw.numel()
+    n_planes = planes.numel() // n_words if n_words else 0
+    if n_planes == 0 or planes.numel() != n_planes * n_words:
+        raise ValueError(f"planes of shape {tuple(planes.shape)} are not "
+                         f"whole planes of {vw.shape[0]} rows")
+    if not 0 <= int(psrc) < int(n) <= 32 * n_words:
+        raise ValueError(f"source {psrc} of {n} vertices does not fit "
+                         f"{n_words} words")
+    n_bits = min(max(int(depth), 1).bit_length(), n_planes)
+    if dev.type != "cuda":
+        return plane_labels_reference(planes, vw, int(n), n_bits, int(psrc))
+    out = torch.empty(n_words * 32, dtype=torch.int32, device=dev)
+    err = _labels_fn()(planes.data_ptr(), vw.data_ptr(), out.data_ptr(),
+                       int(n), n_words, n_bits, int(psrc),
+                       _build.raw_stream(dev.index))
+    if err != 0:
+        raise RuntimeError(f"plane_labels launch failed: CUDA error {err}")
+    trace.count("launch.plane_labels")
     return out

@@ -240,8 +240,7 @@ def _run_kernels(graph, src, mark_preds, traversal_mode, dev):
     # runs outside the GpuTimer, tests/bfs/test_bfs.cu:402-431), after
     # a warm-up search on the search object's first call only
     labels_np, _, device_ms = warm_search(fn, src)
-    preds_np = (bfs_pallas._preds(graph, dev, labels_np, src)
-                if mark_preds else None)
+    preds_np = fn.preds() if mark_preds else None
     with trace.span("gt.entry.stats"):
         visited = labels_np != INF32
         deg = np.diff(graph.row_offsets)

@@ -29,7 +29,11 @@ sweep per level into an int32 label array, and `get_pull_sweeper`,
 `get_pull_sweeper_v2` and `get_pull_sweeper_v3` give the sweeper that
 stands for the reference's three.  The graph searched, its reach masks
 and the predecessor pass (the min-id tie-break, rebuilt from the labels)
-are the shared `search_graph.SearchGraph`'s.
+are the shared `search_graph.SearchGraph`'s.  A search object's `preds`
+feeds that pass the labels of its last search where they are: the mega
+branch's decoded from its label planes on the device, in search ids
+(`ops/preds.py::plane_labels`); the grid-stepped branch's, whose planes
+are in input ids, uploaded from the host.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import torch
 from gunrockinst_tpu_torch.device import DeviceLike, download, resolve_device
 from gunrockinst_tpu_torch.graph.csr import CsrGraph, derived
 from gunrockinst_tpu_torch.graph.relabel import reach_words_for
+from gunrockinst_tpu_torch.ops import preds as preds_op
 from gunrockinst_tpu_torch.ops.chain import ChainBfs
 from gunrockinst_tpu_torch.ops.pull import PullSweeper
 from gunrockinst_tpu_torch.ops.words import (host_unpack_words, start_words,
@@ -75,7 +80,8 @@ def _labels(planes, vw, depth: int, n_planes: int, n: int, perm,
 class _FusedBfs:
     """The mega branch: fn(src) -> (labels (n,) int32 in input ids,
     depth, device_ms); `route` names the route the last call took and
-    `warm_routes` the routes a call has completed."""
+    `warm_routes` the routes a call has completed; `preds()` gives the
+    last call's predecessors."""
 
     def __init__(self, g: SearchGraph):
         self.g = g
@@ -85,6 +91,7 @@ class _FusedBfs:
         self.warm_routes = set()
         self._chain = None
         self._widths = []   # new vertices a level of the deep search
+        self._last = None   # (planes, vw, depth, psrc, src) of the last call
 
     def chain(self) -> ChainBfs:
         """The chain kernel with full planes, built at first use with
@@ -99,6 +106,7 @@ class _FusedBfs:
     def __call__(self, src: int) -> Tuple[np.ndarray, int, float]:
         g = self.g
         psrc = g.internal(src)
+        self._last = None   # the last search's planes go before this one's
         reach = None if self.went_deep else g.reach(psrc)
         sync(g.device)
         with trace.span("gt.entry.search") as t:
@@ -123,8 +131,19 @@ class _FusedBfs:
         # label assembly on the host, outside the timed window (the
         # reference times Enact only, tests/bfs/test_bfs.cu:402-431)
         labels = _labels(planes, vw, depth, n_planes, g.n, g.perm, src)
+        self._last = (planes, vw, depth, psrc, int(src))
         self.warm_routes.add(self.route)
         return labels, depth, t.elapsed_ms
+
+    def preds(self) -> np.ndarray:
+        """(n,) int32 predecessors of the last call's search (`_preds`),
+        fed from its label planes and visited words on the device, decoded
+        there into labels in search ids: the host labels the call returned
+        are the same values, and are not uploaded again."""
+        planes, vw, depth, psrc, src = self._last
+        with trace.span("gt.entry.preds"):
+            labels = preds_op.plane_labels(planes, vw, self.g.n, depth, psrc)
+            return self.g.preds_from_card(labels, src)
 
 
 class _SweptBfs:
@@ -132,12 +151,14 @@ class _SweptBfs:
     levels of the touched sweep from a host loop over the unrelabeled
     graph, with full planes, up to n levels; depth counts the last,
     empty level.  `warm_routes` holds "sweep" once a call has
-    completed."""
+    completed; `preds()` gives the last call's predecessors."""
 
     route = "sweep"
 
     def __init__(self, csr: CsrGraph, device: torch.device):
+        self.csr, self.device = csr, device
         self.n = csr.num_nodes
+        self._last = None   # (labels, src) of the last call
         self.warm_routes = set()
         self.sweeper = get_pull_sweeper(csr, device)
         self.planes_full = max((self.n + 1).bit_length(), 1)
@@ -165,8 +186,16 @@ class _SweptBfs:
                     cont = bool(trace.d2h(nfw.any()))
             sync(sw.device)
         labels = _labels(planes, vw, depth, n_planes, n, None, src)
+        self._last = (labels, src)
         self.warm_routes.add(self.route)
         return labels, depth, t.elapsed_ms
+
+    def preds(self) -> np.ndarray:
+        """(n,) int32 predecessors of the last call's search (`_preds`):
+        its planes are in input ids, not the search graph's, so its host
+        labels are uploaded."""
+        labels, src = self._last
+        return _preds(self.csr, self.device, labels, src)
 
 
 def _checked(src: int, n: int) -> int:
@@ -239,9 +268,10 @@ def _multi(g: SearchGraph, reps: int, planes: int):
 
 def _preds(csr: CsrGraph, dev: torch.device, labels_np: np.ndarray,
            src: int) -> np.ndarray:
-    """(n,) int32 predecessors from final labels: the least input id
-    among the in-neighbours one level up (`SearchGraph.preds_of`); -1
-    at the source and at unreached vertices."""
+    """(n,) int32 predecessors from final host labels in input ids: the
+    least input id among the in-neighbours one level up
+    (`SearchGraph.preds_of`, the labels uploaded); -1 at the source and
+    at unreached vertices."""
     with trace.span("gt.entry.preds"):
         return search_graph(csr, dev).preds_of(labels_np, src, INF32)
 
@@ -256,7 +286,7 @@ def bfs_pallas_fused(csr: CsrGraph, src: int, mark_preds: bool = True,
     dev = resolve_device(device)
     fn = get_fused_bfs(csr, use_mega=variant == "mega", device=dev)
     labels_np, depth, device_ms = fn(src)
-    preds_np = _preds(csr, dev, labels_np, src) if mark_preds else None
+    preds_np = fn.preds() if mark_preds else None
     return labels_np, preds_np, int(depth), device_ms
 
 

@@ -1,7 +1,8 @@
 """The search graph the kernel routes of BFS, SSSP, CC, PR, HITS, SALSA,
 WTF and BC share: the relabeled device CSC of one host graph
 (`SearchGraph`) with its reverse CSC, per-source reach masks, the
-predecessor pass (`preds_of`, the min-id tie-break) and the f32 add
+predecessor pass (`preds_of` and `preds_from_card`, the min-id
+tie-break) and the f32 add
 steppers.  `search_graph(csr, device)` builds it once per graph and
 device, whichever primitive reaches the graph first.
 """
@@ -153,8 +154,22 @@ class SearchGraph:
         """`min_preds` of a search's final (n,) host values in input ids
         (BFS labels, `fill` INF32; SSSP distances, `fill` inf, with
         `weights` or `const_w`), uploaded and moved to search ids with
-        `fill` in the padding; -1 at `src`."""
+        `fill` in the padding; -1 at `src`.  Counted
+        `preds.host_values`."""
+        trace.count("preds.host_values")
         vals = self.to_internal(upload(values, self.device), fill)
+        preds = self.min_preds(vals, weights, const_w)
+        preds[src] = -1
+        return preds
+
+    def preds_from_card(self, vals: torch.Tensor, src: int,
+                        weights: Optional[torch.Tensor] = None,
+                        const_w: Optional[float] = None) -> np.ndarray:
+        """`min_preds` of a search's final values where the search left
+        them: on the device, in search ids, with the fill in the padding
+        (nothing is uploaded); -1 at `src`.  Counted
+        `preds.card_values`."""
+        trace.count("preds.card_values")
         preds = self.min_preds(vals, weights, const_w)
         preds[src] = -1
         return preds

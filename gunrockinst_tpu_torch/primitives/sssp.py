@@ -135,7 +135,9 @@ def sssp_kernel(graph: DeviceGraph, src: int, delta: float,
 
 class _SsspPlanes:
     """fn(src) -> (dist (n,) f32 in input ids, rounds, device_ms);
-    `warm_routes` holds "planes" once a call has completed."""
+    `warm_routes` holds "planes" once a call has completed; `dists` holds
+    the last call's distances on the device, in search ids, inf in the
+    padding, and `preds(src)` its predecessors."""
 
     route = "planes"
 
@@ -163,6 +165,7 @@ class _SsspPlanes:
             weights=weights, const_w=const_w, use_active=True,
             out_edges=None if weights is not None else g.reverse)
         self.limit = 4 * g.n + 8
+        self.dists = None
 
     def start(self, src: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Round-0 state: dist = inf but 0.0 at the source, and the
@@ -183,20 +186,22 @@ class _SsspPlanes:
         with trace.span("gt.entry.search") as t:
             vals, it = self.stepper.fixpoint(vals, ch, self.limit)
             sync(g.device)
+        self.dists = vals.view(torch.float32)
         with trace.span("gt.entry.extract"):
-            dist = download(g.to_input(vals.view(torch.float32)))
+            dist = download(g.to_input(self.dists))
         self.warm_routes.add(self.route)
         return dist, it, t.elapsed_ms
 
-    def preds(self, dist_np: np.ndarray, src: int) -> np.ndarray:
+    def preds(self, src: int) -> np.ndarray:
         """preds[v] = least input id of the in-neighbours u with
         dist[u] + w(u,v) == dist[v] (one f32 add), -1 where there is
         none and at the source (sssp.py:267-279), over the device CSC
-        and weights the sweeps read."""
+        and weights the sweeps read, of the last call's distances
+        `dists`, read where the call left them."""
         with trace.span("gt.entry.preds"):
             st = self.stepper
-            return self.g.preds_of(dist_np, src, float("inf"), st.weights,
-                                   st.const_w)
+            return self.g.preds_from_card(self.dists, src, st.weights,
+                                          st.const_w)
 
 
 def get_sssp_planes(csr: CsrGraph, device: DeviceLike = None) -> _SsspPlanes:
@@ -290,7 +295,7 @@ def _run_planes(graph, src, mark_preds, dev) -> SsspResult:
             raise ValueError("SSSP requires non-negative edge weights")
     fn = get_sssp_planes(graph, dev)
     dist_np, it, device_ms = warm_search(fn, src)
-    preds_np = fn.preds(dist_np, int(src)) if mark_preds else None
+    preds_np = fn.preds(int(src)) if mark_preds else None
     with trace.span("gt.entry.stats"):
         visited = np.isfinite(dist_np)
         deg = np.diff(graph.row_offsets)

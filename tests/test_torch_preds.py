@@ -8,10 +8,18 @@
   rounds onto the distance, unreached vertices and the source, a hub of
   many chunks; the chunk plan tiling every long in-list once; the
   wrapper's errors;
+- on the CPU, the labels the pass is fed on the card: the plain decode
+  of a search's label planes (`plane_labels`) against the host's label
+  assembly moved to search ids, over step-8 and chain searches,
+  relabeled and unrelabeled graphs, a depth that is a power of two and
+  stale bits in the planes it must not read; the preds of the mega and
+  planes routes (fed from the card) against those of the host values'
+  upload; the counters that say which way each pass was fed;
 - on the card (`card` marker, skipped without CUDA), the kernel against
   the plain version bit for bit at rmat-s20 and on a Kronecker graph
-  made by the benchmark's generator, and one `launch.min_preds` per
-  call that marks preds.
+  made by the benchmark's generator, one `launch.min_preds` per
+  call that marks preds, and the decode kernel against its plain
+  version on the same graphs, after a step-8 and a chain search.
 
 No JAX here: the card tests run on a machine without it
 (`python -m pytest tests/test_torch_preds.py --noconftest -m card`)."""
@@ -24,6 +32,7 @@ from gunrockinst_tpu_torch.graph.coo import CooGraph
 from gunrockinst_tpu_torch.graph.csr import CsrGraph
 from gunrockinst_tpu_torch.graph.rmat import rmat_graph
 from gunrockinst_tpu_torch.ops import preds as preds_op
+from gunrockinst_tpu_torch.ops.chain import ChainBfs
 from gunrockinst_tpu_torch.oracles import bfs_reference, sssp_reference
 from gunrockinst_tpu_torch.device import download, upload
 from gunrockinst_tpu_torch.primitives import bfs, bfs_pallas, sssp
@@ -65,9 +74,17 @@ def _bfs_preds(csr, src):
     return bfs_pallas._preds(csr, CPU, labels, src)
 
 
+def _uploaded_sssp_preds(csr, dist, src):
+    """The preds of host distances `dist` in input ids, uploaded, with
+    the weights the planes route reads."""
+    st = sssp.get_sssp_planes(csr, CPU).stepper
+    return search_graph(csr, CPU).preds_of(dist, src, float("inf"),
+                                           st.weights, st.const_w)
+
+
 def _sssp_preds(csr, src):
     dist, _ = sssp_reference(csr, src)
-    return sssp.get_sssp_planes(csr, CPU).preds(dist, src)
+    return _uploaded_sssp_preds(csr, dist, src)
 
 
 @pytest.mark.parametrize("relabel", RELABEL)
@@ -222,6 +239,183 @@ def test_wrapper_rejects_bad_inputs():
     assert trace.totals().get("launch.min_preds", 0) == 0
 
 
+# ---- the labels and distances the pass is fed on the card ---------------
+
+def _strip(length, width=3):
+    """A width x length strip of a square mesh: more than 255 levels
+    deep from a corner, so the mega branch takes the chain kernel."""
+    ids = np.arange(width * length).reshape(length, width)
+    src = np.concatenate([ids[:, :-1].ravel(), ids[:-1].ravel()])
+    dst = np.concatenate([ids[:, 1:].ravel(), ids[1:].ravel()])
+    return _coo_graph(width * length, src, dst, undirected=True)
+
+
+def _path(n):
+    return _coo_graph(n, np.arange(n - 1), np.arange(1, n), undirected=True)
+
+
+def _plant_stale_bits(planes, vw, n_bits, rows, seed):
+    """Random bits, in place, in every plane from `n_bits` up and in the
+    read planes at the vertices the search did not visit: what a decode
+    must not read."""
+    gen = torch.Generator().manual_seed(seed)
+    noise = torch.randint(-2**31, 2**31, planes.shape, generator=gen,
+                          dtype=torch.int64).to(torch.int32)
+    noise = noise.to(planes.device)
+    planes[n_bits * rows:] = noise[n_bits * rows:]
+    for b in range(n_bits):
+        planes[b * rows:(b + 1) * rows] |= (noise[b * rows:(b + 1) * rows]
+                                            & ~vw)
+
+
+# (graph, source, GT_BFS_RELABEL, route, depth of the search)
+DECODE = {
+    "step8-relabeled": (lambda: rmat_graph(10, 8, undirected=True, seed=3),
+                        0, "force", "step8", None),
+    "step8-unrelabeled": (lambda: rmat_graph(10, 8, undirected=True,
+                                             seed=3), 0, "0", "step8", None),
+    "step8-depth-8": (lambda: _path(8), 0, "force", "step8", 8),
+    "chain-relabeled": (lambda: _strip(300), 0, "force", "chain", None),
+    "chain-unrelabeled": (lambda: _strip(300), 1, "0", "chain", None),
+    "chain-depth-512": (lambda: _path(600), 88, "0", "chain", 512),
+}
+
+
+@pytest.mark.parametrize("stale", [False, True])
+@pytest.mark.parametrize("case", sorted(DECODE))
+def test_plane_decode_matches_the_host_assembly(monkeypatch, case, stale):
+    make, src, relabel, route, want_depth = DECODE[case]
+    monkeypatch.setenv("GT_BFS_RELABEL", relabel)
+    csr = make()
+    fn = bfs_pallas.get_fused_bfs(csr, True, CPU)
+    fn(src)
+    labels, depth, _ = fn(src)
+    assert fn.route == route
+    g = fn.g
+    assert (g.perm is None) == (relabel == "0")
+    if want_depth is not None:
+        assert depth == want_depth
+    planes, vw, _, psrc, _ = fn._last
+    n_planes = planes.shape[0] // g.rows
+    n_bits = min(max(depth, 1).bit_length(), n_planes)
+    if stale:
+        planes = planes.clone()
+        _plant_stale_bits(planes, vw, n_bits, g.rows, seed=len(case))
+        labels = bfs_pallas._labels(planes, vw, depth, n_planes, g.n,
+                                    g.perm, src)
+    np.testing.assert_array_equal(labels, bfs_reference(csr, src)[0])
+    got = preds_op.plane_labels(planes, vw, g.n, depth, psrc)
+    want = g.to_internal(torch.from_numpy(labels), INF32)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def test_plane_decode_rejects_bad_inputs():
+    planes = torch.zeros((3 * 8, 128), dtype=torch.int32)
+    vw = torch.zeros((8, 128), dtype=torch.int32)
+    with pytest.raises(ValueError, match="whole planes"):
+        preds_op.plane_labels(planes[:20], vw, 100, 3, 0)
+    with pytest.raises(ValueError, match="int32"):
+        preds_op.plane_labels(planes.long(), vw, 100, 3, 0)
+    with pytest.raises(ValueError, match="int32"):
+        preds_op.plane_labels(planes, vw.reshape(-1), 100, 3, 0)
+    with pytest.raises(ValueError, match="does not fit"):
+        preds_op.plane_labels(planes, vw, 8 * 128 * 32 + 1, 3, 0)
+    with pytest.raises(ValueError, match="does not fit"):
+        preds_op.plane_labels(planes, vw, 100, 3, 100)
+    trace.reset_totals()
+    preds_op.plane_labels(planes, vw, 100, 3, 0)        # the plain version
+    assert trace.totals().get("launch.plane_labels", 0) == 0
+
+
+BFS_GRAPHS = {
+    "kronecker": (lambda: rmat_graph(11, 16, undirected=True, seed=7),
+                  "force"),
+    "mesh": (lambda: _strip(300), "1"),
+    "unrelabeled": (lambda: _random(400, 3000, 6, True, "none"), "0"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BFS_GRAPHS))
+def test_mega_preds_fed_from_the_card_match_the_uploaded(monkeypatch,
+                                                         name):
+    make, relabel = BFS_GRAPHS[name]
+    monkeypatch.setenv("GT_BFS_RELABEL", relabel)
+    csr = make()
+    for src in (0, int(np.argmax(csr.degrees))):
+        res = bfs.run(csr, src, traversal_mode="mega", mark_preds=True,
+                      device=CPU)
+        if name == "mesh":
+            assert res.stats.route == "chain"
+        want = bfs_pallas._preds(csr, CPU, res.labels, src)
+        np.testing.assert_array_equal(res.preds, want)
+        np.testing.assert_array_equal(res.preds, bfs_reference(csr, src)[1])
+
+
+@pytest.mark.parametrize("relabel", RELABEL)
+@pytest.mark.parametrize("weights", ["unit", "const"])
+def test_planes_preds_fed_from_the_card_match_the_uploaded(monkeypatch,
+                                                           relabel,
+                                                           weights):
+    monkeypatch.setenv("GT_BFS_RELABEL", relabel)
+    csr = _random(300, 2400, 11, True, weights)
+    fn = sssp.get_sssp_planes(csr, CPU)
+    assert (fn.stepper.weights is None) == (weights == "const")
+    for src in (0, 77):
+        res = sssp.run(csr, src, mode="planes", mark_preds=True, device=CPU)
+        assert fn.dists.dtype == torch.float32
+        assert torch.isinf(fn.dists[fn.g.n:]).all()
+        np.testing.assert_array_equal(res.preds,
+                                      _uploaded_sssp_preds(csr, res.dist,
+                                                           src))
+        np.testing.assert_array_equal(res.preds,
+                                      sssp_reference(csr, src)[1])
+
+
+def _preds_counts(call):
+    """The counts of a call's `gt.entry.preds` span and the spans under
+    it, summed."""
+    (top,) = [s for s in call.spans if s.name == "gt.entry.preds"]
+    under, counts = {top.id}, {}
+    for s in call.spans:
+        if s.id in under or s.parent in under:
+            under.add(s.id)
+            for k, v in s.counts.items():
+                counts[k] = counts.get(k, 0) + v
+    return counts
+
+
+@pytest.mark.parametrize("route", ["mega", "planes", "pallas", "v1"])
+def test_each_pass_counts_where_its_values_came_from(route):
+    """On a graph whose set-up is done (its first call builds what the
+    pass reads): one pass a call, counted by where its values came
+    from, and nothing uploaded for a pass fed from the card."""
+    csr = _random(200, 1600, 13, True, "unit")
+    for src in (5, 3):
+        trace.clear()
+        trace.reset_totals()
+        if route == "planes":
+            sssp.run(csr, src, mode="planes", mark_preds=True, device=CPU)
+        elif route == "v1":
+            bfs_pallas.bfs_pallas(csr, src, mark_preds=True, device=CPU)
+        else:
+            bfs.run(csr, src, traversal_mode=route, mark_preds=True,
+                    device=CPU)
+    totals = trace.totals()
+    on_card = route in ("mega", "planes")
+    assert totals.get("preds.card_values", 0) == int(on_card)
+    assert totals.get("preds.host_values", 0) == int(not on_card)
+    if route == "v1":
+        return
+    (call,) = trace.calls()
+    counts = _preds_counts(call)
+    if on_card:
+        assert counts["preds.card_values"] == 1
+        assert counts.get("copy.h2d_bytes", 0) == 0
+    else:
+        assert counts["preds.host_values"] == 1
+        assert counts["copy.h2d_bytes"] == 4 * csr.num_nodes
+
+
 # ---- on the card ---------------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -306,6 +500,31 @@ def test_one_launch_per_call_that_marks_preds(card, card_graphs, kind):
 
     assert launches(True) == 1
     assert launches(False) == 0
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("name", ["rmat20", "kron17"])
+@pytest.mark.parametrize("route", ["step8", "chain"])
+def test_decode_kernel_matches_plain_bitwise(card, card_graphs, name,
+                                             route):
+    csr = card_graphs[name]
+    g = search_graph(csr, card)
+    psrc = g.internal(int(np.argsort(-csr.degrees, kind="stable")[5]))
+    planes_full = (g.n + 1).bit_length()
+    if route == "step8":
+        planes, vw, depth, _ = g.search(psrc, g.reach(psrc), 8, 255)
+    else:
+        planes, vw, depth = ChainBfs(g, planes_full)(psrc)
+        depth = int(depth.item())
+    n_planes = planes.shape[0] // g.rows
+    n_bits = min(max(depth, 1).bit_length(), n_planes)
+    assert n_bits < n_planes
+    _plant_stale_bits(planes, vw, n_bits, g.rows, seed=depth)
+    got = preds_op.plane_labels(planes, vw, g.n, depth, psrc)
+    want = preds_op.plane_labels_reference(planes, vw, g.n, n_bits, psrc)
+    torch.cuda.synchronize()
+    assert int((want != INF32).sum()) > 1000
+    assert torch.equal(got, want)
 
 
 def test_download_and_upload_count_and_keep_values():
